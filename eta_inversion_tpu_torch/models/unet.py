@@ -1,0 +1,168 @@
+"""UNet2DCondition (Stable Diffusion 1.x architecture), NCHW, hook-aware.
+
+Counterpart of eta_inversion_tpu/models/unet.py: 4 down stages (320/640/1280/
+1280 at SD-1.5 width, cross-attention on the first three), mid block, 4 up
+stages, 32 attention layers.  `build_attn_metas` is the JAX package's at
+SD-1.x geometry; the config keeps the SD-1.x fields only (fixed head count,
+transformer depth 1, conv projections, no added conditioning: the SD-2.x /
+SDXL fields come with those presets).  The CFG shared-prefix saving
+is not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attn_ctrl import AttnHooks, AttnLayerMeta, ResnetMeta
+from .attention import Transformer2D
+from .layers import (Downsample, GroupNorm, ResnetBlock, TimestepEmbedding, Upsample,
+                     timestep_embedding)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    sample_size: int = 64
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    num_heads: int = 8
+    norm_num_groups: int = 32
+    attn_down: Tuple[bool, ...] = (True, True, True, False)
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.block_out_channels)
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+def build_attn_metas(config: UNetConfig) -> Dict[str, Tuple[AttnLayerMeta, ...]]:
+    """Static attention-layer metadata in forward-execution order; keys
+    f"down_{i}_{j}", "mid", f"up_{i}_{j}", each a (self, cross) pair (SD-1.x
+    transformer depth 1)."""
+    metas: Dict[str, Tuple[AttnLayerMeta, ...]] = {}
+    heads = config.num_heads
+    n = 0  # attention blocks so far
+
+    def add(key: str, place: str, res: int):
+        nonlocal n
+        metas[key] = (AttnLayerMeta(2 * n, False, place, res, n, -1, heads),
+                      AttnLayerMeta(2 * n + 1, True, place, res, -1, n, heads))
+        n += 1
+
+    res = config.sample_size
+    for i in range(config.num_stages):
+        if config.attn_down[i]:
+            for j in range(config.layers_per_block):
+                add(f"down_{i}_{j}", "down", res)
+        if i < config.num_stages - 1:
+            res //= 2
+    add("mid", "mid", res)
+    for i in reversed(range(config.num_stages)):
+        if config.attn_down[i]:
+            for j in range(config.layers_per_block + 1):
+                add(f"up_{config.num_stages - 1 - i}_{j}", "up", res)
+        if i > 0:
+            res *= 2
+    return metas
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, config: UNetConfig = UNetConfig()):
+        super().__init__()
+        self.config = cfg = config
+        self.metas = build_attn_metas(cfg)
+        g = cfg.norm_num_groups
+        c0 = cfg.block_out_channels[0]
+        tdim = cfg.time_embed_dim
+        self.time_embedding = TimestepEmbedding(c0, tdim)
+        self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1)
+
+        def transformer(key, ch):
+            heads = cfg.num_heads
+            return Transformer2D(ch, heads, ch // heads, cfg.cross_attention_dim,
+                                 self.metas[key], groups=g)
+
+        skips: List[int] = [c0]
+        cur = c0
+        for i, ch in enumerate(cfg.block_out_channels):
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_{i}_resnet_{j}", ResnetBlock(cur, ch, tdim, g))
+                cur = ch
+                if cfg.attn_down[i]:
+                    self.add_module(f"down_{i}_attn_{j}", transformer(f"down_{i}_{j}", ch))
+                skips.append(ch)
+            if i < cfg.num_stages - 1:
+                self.add_module(f"down_{i}_downsample", Downsample(ch))
+                skips.append(ch)
+        self.mid_resnet_0 = ResnetBlock(cur, cur, tdim, g)
+        self.mid_attn = transformer("mid", cur)
+        self.mid_resnet_1 = ResnetBlock(cur, cur, tdim, g)
+        for up_i, stage in enumerate(reversed(range(cfg.num_stages))):
+            ch = cfg.block_out_channels[stage]
+            for j in range(cfg.layers_per_block + 1):
+                self.add_module(f"up_{up_i}_resnet_{j}",
+                                ResnetBlock(cur + skips.pop(), ch, tdim, g))
+                cur = ch
+                if cfg.attn_down[stage]:
+                    self.add_module(f"up_{up_i}_attn_{j}", transformer(f"up_{up_i}_{j}", ch))
+            if stage > 0:
+                self.add_module(f"up_{up_i}_upsample", Upsample(ch))
+        self.conv_norm_out = GroupNorm(g, cur, eps=1e-5)
+        self.conv_out = nn.Conv2d(cur, cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                hooks: Optional[AttnHooks] = None,
+                store: Optional[Dict[str, torch.Tensor]] = None):
+        """sample: (B, 4, h, w) latent; timesteps: int or (B,); context:
+        (B, 77, cross_attention_dim).  Returns eps (B, 4, h, w) in the
+        parameters' dtype.  Layers whose hooks store probabilities write them
+        into `store`."""
+        cfg = self.config
+        dt = self.conv_in.weight.dtype
+        b = sample.shape[0]
+        t = torch.as_tensor(timesteps, device=sample.device)
+        if t.dim() == 0:
+            t = t.expand(b)
+        temb = timestep_embedding(t, cfg.block_out_channels[0])
+        temb = self.time_embedding(temb.to(dt))
+        ctx = encoder_hidden_states.to(dt)
+        m = self._modules
+
+        x = self.conv_in(sample.to(dt))
+        skips = [x]
+        for i in range(cfg.num_stages):
+            for j in range(cfg.layers_per_block):
+                x = m[f"down_{i}_resnet_{j}"](x, temb)
+                if cfg.attn_down[i]:
+                    x = m[f"down_{i}_attn_{j}"](x, ctx, hooks, store)
+                skips.append(x)
+            if i < cfg.num_stages - 1:
+                x = m[f"down_{i}_downsample"](x)
+                skips.append(x)
+        x = self.mid_resnet_0(x, temb)
+        x = self.mid_attn(x, ctx, hooks, store)
+        x = self.mid_resnet_1(x, temb)
+        for up_i, stage in enumerate(reversed(range(cfg.num_stages))):
+            for j in range(cfg.layers_per_block + 1):
+                x = torch.cat([x, skips.pop()], dim=1)
+                inner = None
+                if hooks is not None:
+                    rmeta = ResnetMeta(up_i, j, x.shape[2])
+                    inner = lambda h, rm=rmeta: hooks.resnet(rm, h)  # noqa: E731
+                x = m[f"up_{up_i}_resnet_{j}"](x, temb, inner_hook=inner)
+                if cfg.attn_down[stage]:
+                    x = m[f"up_{up_i}_attn_{j}"](x, ctx, hooks, store)
+            if stage > 0:
+                x = m[f"up_{up_i}_upsample"](x)
+        x = F.silu(self.conv_norm_out(x)).to(dt)
+        return self.conv_out(x)
