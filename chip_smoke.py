@@ -2,39 +2,54 @@
 
     python3 chip_smoke.py                 # all phases, sd15 at 50 steps
     python3 chip_smoke.py --steps 20      # shorter edits
-    python3 chip_smoke.py --phases device,build,kernels
+    python3 chip_smoke.py --phases device,build,kernels,fused
 
 Phases, in order; any failure exits non-zero before the last line:
 
 1. device   -- the card's name, and its name and power limit from nvidia-smi.
-2. build    -- compile the CUDA kernels from csrc/ with nvcc (timed) and load.
+2. build    -- compile the CUDA kernels from csrc/ with nvcc, one process per
+               source, all started together (timed), and load them.
 3. kernels  -- each kernel against its plain PyTorch version on the card, on
                the same seeded bf16 inputs, at the main path's shapes; max abs
                error against a bound of 2% of the plain output's (or
                gradient's) largest magnitude, the forward kernels' LSE against
-               the plain logsumexp, CUDA-event times of both, the time of
-               F.scaled_dot_product_attention on the same inputs (forward, or
-               its backward alone) with the kernel it ran, and each kernel's
-               bound (the least time the card could take).
-4. serving  -- the sd15 etainv+ptp edit server (random weights from a seed)
+               the plain logsumexp, CUDA-event times of both, the time of one
+               library call on the same inputs with the kernel it ran
+               (F.scaled_dot_product_attention, forward or its backward alone,
+               for the attention kernels; F.linear, F.gelu, the multiply and
+               F.linear for the fused GEGLU), and each kernel's bound (the
+               least time the card could take).  S2, the Pallas prototype of
+               K5, is K5's kernel at the prototype's shapes.
+4. fused    -- the opt-in entry points of K5 and K6 (the JAX package keeps
+               both off its served paths) on one full-width sd15 UNet call
+               (random weights from a seed, bf16, the ptp backward's 4 rows):
+               the input of each of the 16 FeedForwards and the q/k/v of each
+               of the 16 cross-attentions are captured, run through
+               geglu_mlp(force_fused=True) and crossk_attention_bhsd, and held
+               against the module's own plain result; the summed time of the
+               16 calls against the plain path's; one gradient through K6's
+               autograd.Function at the 64x64 shape against the plain path's.
+5. serving  -- the sd15 etainv+ptp edit server (random weights from a seed)
                answers three 512x512 edits: two submitted concurrently and one
                HTTP POST /v1/edit on 127.0.0.1.  Each result must be a finite
                512x512x3 image, and the launch counts of the forward kernels
                (K1-K3) must have grown during the edits.  A tiny-preset edit on
                the card is also held against the same edit on the CPU.
-5. nti      -- the sd15 nti+ptp edit server answers one 512x512 edit (null-
+6. nti      -- the sd15 nti+ptp edit server answers one 512x512 edit (null-
                text inversion: Adam on the null embedding through UNet
                gradients, 10 inner steps per step); the result must be finite
-               512x512x3 and every kernel's launch count, the backward's (K4a,
-               K4b) included, must have grown.  Then one nti inner gradient at
-               full width (UNet forward + backward with respect to the
-               embedding) through the kernels is held against the same
+               512x512x3 and every flash kernel's launch count, the backward's
+               (K4a, K4b) included, must have grown.  Then one nti inner
+               gradient at full width (UNet forward + backward with respect to
+               the embedding) through the kernels is held against the same
                gradient on the plain attention path, and a gradient with the
                self-attention share dropped must miss the same bound.
 
-Each phase checks the launch counts of its own path.  The line before the
-last is {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+Each phase sets the launch counts to 0 before it drives its path and checks
+them after: the kernels of its path must have been launched, and K5 and K6
+not at all on the served paths (5, 6).  The line before the last is
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +72,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from eta_inversion_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from eta_inversion_tpu_torch.ops import geglu as gg  # noqa: E402
 
 # The bound scales with the reference: with randn q/k/v the outputs are
 # averages over S keys, of size about sqrt(e/S) (max |out| 0.13-0.4 at the
@@ -90,6 +106,11 @@ GRAD_RTOL = 0.1
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_EXP = 16 * 132 * 1.98e9
+# fp32 outside the tensor cores (an FMA counts 2), for K6's gate: per gated
+# element the scale, clamp (2), z^2, 8 FMAs of the erf polynomial, z * p,
+# 1 + erf, 0.5 * x, the product, the two bias adds and h * gelu: 27 flops
+PEAK_FP32_FLOPS = 67e12
+GELU_FLOPS = 27
 
 KERNELS = [
     # name, TPU kernel replaced, wrapper counter, shapes (main-path shape
@@ -119,13 +140,49 @@ KERNELS = [
                  "_flash_dkv_kernel :170)",
      "counter": "flash_attention_bwd_dkv",
      "shapes": [("bwd_dkv", 1, 4096, 8, 40), ("bwd_dkv", 1, 1024, 8, 80)]},
+    # K5 / S2 shapes: (kind, BH, Sq, D, sk); K5 at the 64x64, 32x32 and 16x16
+    # cross-attentions of a 4-row sd15 UNet call
+    {"name": "K5 crossk_attention_bhsd",
+     "replaces": "eta_inversion_tpu/ops/flash_attention.py:506 (crossk_attention_bhsd -> "
+                 "_crossk_kernel :488)",
+     "counter": "crossk_attention", "source": "crossk_attention.cu",
+     "shapes": [("crossk", 32, 4096, 40, 77), ("crossk", 32, 1024, 80, 77),
+                ("crossk", 32, 256, 160, 77)]},
+    {"name": "S2 cross_shortk (K5's kernel)",
+     "replaces": "scripts/attn_microbench3.py:107 (cross_shortk -> kern_crossk :93)",
+     "counter": "crossk_attention", "source": "crossk_attention.cu",
+     "shapes": [("crossk_padded", 256, 4096, 40, 77), ("crossk_padded", 320, 4096, 40, 77)]},
+    # K6 shapes: (kind, n, C, I), the FeedForwards of a 4-row sd15 UNet call
+    {"name": "K6 geglu_mlp (fused)",
+     "replaces": "eta_inversion_tpu/ops/geglu.py:105 (_fused_fwd_impl -> _geglu_kernel :74)",
+     "counter": "geglu_fused", "source": "geglu.cu",
+     "shapes": [("geglu", 16384, 320, 1280), ("geglu", 4096, 640, 2560),
+                ("geglu", 1024, 1280, 5120)]},
 ]
 FWD_COUNTERS = ("flash_attention_packed", "flash_attention_bhsd_onepass",
                 "flash_attention_bhsd_blockwise")
+FLASH_COUNTERS = FWD_COUNTERS + ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# the JAX package keeps K5 and K6 off its served paths, and so does the port
+OPT_IN_COUNTERS = ("crossk_attention", "geglu_fused")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _reset_counts() -> None:
+    fa.reset_launch_counts()
+    gg.reset_launch_counts()
+
+
+def _counts() -> dict:
+    return {**fa.LAUNCHES, **gg.LAUNCHES}
+
+
+def _check_opt_in_idle(counts: dict, phase: str) -> None:
+    launched = {k: counts[k] for k in OPT_IN_COUNTERS if counts[k]}
+    if launched:
+        raise RuntimeError(f"{phase}: the served path launched opt-in kernels {launched}")
 
 
 def phase_device() -> str:
@@ -147,8 +204,10 @@ def phase_build() -> None:
     from eta_inversion_tpu_torch.ops import cuda_build
 
     t0 = time.monotonic()
-    fa.build_kernels()  # one nvcc per source, started together
-    log(f"[build] flash attention kernels ready in {time.monotonic() - t0:.1f} s")
+    cuda_build.load_libraries(fa._LIBS + gg._LIBS)  # one nvcc per source, started together
+    fa.build_kernels()
+    gg.build_kernels()
+    log(f"[build] attention and GEGLU kernels ready in {time.monotonic() - t0:.1f} s")
     for name, info in cuda_build.build_info.items():
         log(f"[build] {name}: nvcc {info['seconds']:.1f} s -> {info['path']}")
         for line in str(info["log"]).splitlines():
@@ -175,33 +234,44 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(kind, bh, s, d):
+def _roofline(mma_flops, exps, fp32_flops, nbytes):
     """(ms, "operations" or "bytes"): the least time the card could take for
-    the work of one call: tensor-core flops at the bf16 peak, one exponential
-    per score at the MUFU rate, and each input read and each output written
-    once at the HBM rate (bf16 tensors, fp32 LSE and D)."""
-    mult = {"bwd_dq": 6, "bwd_dkv": 8}.get(kind, 4)
-    flops = mult * bh * s * s * d
-    exps = bh * s * s
-    tensors = {"bwd_dq": 6, "bwd_dkv": 6}.get(kind, 4)  # q,k,v,o,dO,dQ / q,k,v,dO,dK,dV
-    vectors = 2 if kind in ("bwd_dq", "bwd_dkv") else 0  # LSE and D, fp32
-    nbytes = tensors * bh * s * d * 2 + vectors * bh * s * 4
-    ops_s = max(flops / PEAK_BF16_FLOPS, exps / PEAK_EXP)
+    one call: tensor-core flops at the bf16 peak, exponentials at the MUFU
+    rate and other fp32 flops at the fp32 peak, against each input read and
+    each output written once at the HBM rate."""
+    ops_s = max(mma_flops / PEAK_BF16_FLOPS, exps / PEAK_EXP, fp32_flops / PEAK_FP32_FLOPS)
     bytes_s = nbytes / PEAK_HBM_BYTES
     return (ops_s * 1e3, "operations") if ops_s >= bytes_s else (bytes_s * 1e3, "bytes")
 
 
+def _bound(kind, bh, s, d):
+    """_roofline of a self-attention call (bf16 tensors, fp32 LSE and D):
+    one exponential per score."""
+    mult = {"bwd_dq": 6, "bwd_dkv": 8}.get(kind, 4)
+    tensors = {"bwd_dq": 6, "bwd_dkv": 6}.get(kind, 4)  # q,k,v,o,dO,dQ / q,k,v,dO,dK,dV
+    vectors = 2 if kind in ("bwd_dq", "bwd_dkv") else 0  # LSE and D, fp32
+    nbytes = tensors * bh * s * d * 2 + vectors * bh * s * 4
+    return _roofline(mult * bh * s * s * d, bh * s * s, 0, nbytes)
+
+
+# now and then a profiler session records no device kernel at all (seen once
+# in a run of some thirty sessions): _top_kernel tries this many
+PROFILER_SESSIONS = 3
+
+
 def _top_kernel(fn) -> str:
-    """Name of the device kernel that took the longest in one call of fn."""
+    """Name of the device kernel that took the longest over three calls of fn."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    if not evs:
-        raise RuntimeError("the profiler recorded no device kernel")
-    return max(evs, key=lambda e: e.self_device_time_total).key[:90]
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if evs:
+            return max(evs, key=lambda e: e.self_device_time_total).key[:90]
+    raise RuntimeError(f"{PROFILER_SESSIONS} profiler sessions recorded no device kernel")
 
 
 def _sdpa(kind, q, k, v, h, d):
@@ -282,30 +352,84 @@ def _bwd_case(kind, q, k, v, b, s, h, d, scale, seed):
     return run, plain, check, library
 
 
+def _attention_case(kind, shape, seed):
+    """A self-attention kernel (K1-K4b) at (B, S, H, d)."""
+    b, s, h, d = shape
+    q, k, v = _inputs(kind, b, s, h, d, seed=seed)
+    scale = d ** -0.5
+    if kind.startswith("bwd"):
+        case = _bwd_case(kind, q, k, v, b, s, h, d, scale, seed=seed)
+    else:
+        case = _fwd_case(kind, q, k, v, b, s, h, d, scale)
+    return (*case, _bound(kind, b * h, s, d), f"shape(B,S,H,d)={shape}")
+
+
+def _crossk_case(kind, shape, seed):
+    """K5 at (BH, Sq, D, sk) on seeded q, k, v; for S2 ("crossk_padded") k
+    and v come padded to 128 rows, as the prototype takes them.  The bound
+    counts the sk keys the function reads."""
+    bh, sq, d, sk = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = 128 if kind == "crossk_padded" else sk
+    q = torch.randn(bh, sq, d, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(bh, rows, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+    scale = d ** -0.5
+    run = lambda: fa.crossk_attention_bhsd(q, k, v, sk, scale)  # noqa: E731
+    plain = lambda: fa.crossk_attention_plain(q, k, v, sk, scale)  # noqa: E731
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q[:, None], k[:, None, :sk], v[:, None, :sk], scale=scale)
+    nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * 2
+    bound = _roofline(4 * bh * sq * sk * d, bh * sq * sk, 0, nbytes)
+    return (run, plain, lambda: [(run(), plain())], library, bound,
+            f"shape(BH,Sq,D,sk)={shape}")
+
+
+def _geglu_case(kind, shape, seed):
+    """K6 at (n, C, I) on seeded bf16 x ~ N(0, 1) and weights at the sd15
+    init's scale (1/sqrt(fan_in)), biases ~ N(0, 0.1^2)."""
+    n, c, inner = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*sh, std):
+        return (torch.randn(sh, generator=g, device="cuda") * std).bfloat16()
+
+    x, w1, b1 = r(n, c, std=1.0), r(2 * inner, c, std=c ** -0.5), r(2 * inner, std=0.1)
+    w2, b2 = r(c, inner, std=inner ** -0.5), r(c, std=0.1)
+    run = lambda: gg.geglu_mlp_fused(x, w1, b1, w2, b2)  # noqa: E731
+    plain = lambda: gg.geglu_mlp_fused_plain(x, w1, b1, w2, b2)  # noqa: E731
+
+    def library():  # cuBLAS, F.gelu, the multiply, cuBLAS: no one call computes it
+        s = torch.nn.functional.linear(x, w1, b1)
+        return torch.nn.functional.linear(s[:, :inner] * torch.nn.functional.gelu(s[:, inner:]),
+                                          w2, b2)
+
+    nbytes = (2 * n * c + 3 * c * inner + 2 * inner + c) * 2
+    bound = _roofline(6 * n * c * inner, 0, GELU_FLOPS * n * inner, nbytes)
+    return run, plain, lambda: [(run(), plain())], library, bound, f"shape(n,C,I)={shape}"
+
+
+CASES = {"crossk": _crossk_case, "crossk_padded": _crossk_case, "geglu": _geglu_case}
+
+
 def phase_kernels() -> list:
     rows = []
     for i, kern in enumerate(KERNELS):
         errs, first = [], None
-        for j, (kind, b, s, h, d) in enumerate(kern["shapes"]):
-            q, k, v = _inputs(kind, b, s, h, d, seed=100 * i + j)
-            scale = d ** -0.5
-            if kind.startswith("bwd"):
-                run, plain, check, library = _bwd_case(kind, q, k, v, b, s, h, d, scale,
-                                                       seed=100 * i + j)
-            else:
-                run, plain, check, library = _fwd_case(kind, q, k, v, b, s, h, d, scale)
+        for j, (kind, *shape) in enumerate(kern["shapes"]):
+            make = CASES.get(kind, _attention_case)
+            run, plain, check, library, (bound_ms, bound_by), label = make(
+                kind, tuple(shape), 100 * i + j)
             err, bound = 0.0, 0.0
             for got, want in check():
                 err = max(err, (got.float() - want.float()).abs().max().item())
                 bound = max(bound, KERNEL_RTOL * want.float().abs().max().item())
             if not np.isfinite(err):
-                raise RuntimeError(f"{kern['name']} at {(kind, b, s, h, d)}: non-finite output")
+                raise RuntimeError(f"{kern['name']} at {label}: non-finite output")
             t_k, t_p, t_l = _time_ms(run, 20), _time_ms(plain, 5), _time_ms(library, 20)
             lib_kernel = _top_kernel(library)
-            bound_ms, bound_by = _bound(kind, b * h, s, d)
-            log(f"[kernels] {kern['name']:38s} shape(B,S,H,d)={(b, s, h, d)} "
+            log(f"[kernels] {kern['name']:38s} {label} "
                 f"max_abs_err={err:.3e} (bound {bound:.3e} = {KERNEL_RTOL} x max|plain|) "
-                f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, sdpa {t_l:.3f} ms "
+                f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, library {t_l:.3f} ms "
                 f"[{lib_kernel}], bound {bound_ms:.4f} ms ({bound_by})")
             if not err <= bound:
                 raise RuntimeError(f"{kern['name']} disagrees with its plain version: "
@@ -314,15 +438,143 @@ def phase_kernels() -> list:
             if j == 0:
                 first = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": t_l, "library_kernel": lib_kernel}
-            del q, k, v, run, plain, check, library
-        source = "flash_attention_bwd.cu" if kern["counter"].startswith("flash_attention_bwd") \
-            else "flash_attention.cu"
+            del run, plain, check, library
+        source = kern.get("source") or (
+            "flash_attention_bwd.cu" if kern["counter"].startswith("flash_attention_bwd")
+            else "flash_attention.cu")
         rows.append({"name": kern["name"], "route": "cuda",
                      "source": f"eta_inversion_tpu_torch/csrc/{source}",
                      "replaces": kern["replaces"], "counter": kern["counter"],
                      "max_abs_err": max(errs), **first})
     torch.cuda.empty_cache()
     return rows
+
+
+# the served ptp backward's rows: [u_src, u_tgt, c_src, c_tgt]
+FUSED_ROWS = 4
+
+
+def phase_fused() -> dict:
+    """K5 and K6 through their opt-in entry points on the activations of one
+    full-width sd15 UNet call: every FeedForward's input and every
+    cross-attention's q, k, v, each held against the module's own plain
+    result (the FeedForward's output; the dispatcher's plain short-K path)."""
+    from eta_inversion_tpu_torch.models import SD15, init_like_flax_
+    from eta_inversion_tpu_torch.models.attention import FeedForward
+    from eta_inversion_tpu_torch.models.unet import UNet2DCondition
+    from eta_inversion_tpu_torch.ops.attn_ctrl import AttnHooks
+
+    class CrossCapture(AttnHooks):
+        """Leaves self-attention on its usual path; records each
+        cross-attention's q, k, v (B, H, S, D) and its output."""
+
+        def __init__(self):
+            self.calls = []
+
+        def passthrough_attn(self, meta):
+            return not meta.is_cross
+
+        def qkv(self, meta, q, k, v):
+            self.calls.append([meta, q, k, v])
+            return q, k, v
+
+        def out(self, meta, o):
+            self.calls[-1].append(o)
+            return o
+
+    t0 = time.monotonic()
+    with torch.no_grad(), torch.device("cuda"):
+        unet = UNet2DCondition(SD15.unet).requires_grad_(False).eval()
+        init_like_flax_(unet, torch.Generator("cuda").manual_seed(0))
+        unet.to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    lat = torch.randn(FUSED_ROWS, 4, 64, 64, generator=g, device="cuda")
+    ctx = torch.randn(FUSED_ROWS, 77, SD15.unet.cross_attention_dim, generator=g, device="cuda")
+    ff_io, cross = [], CrossCapture()
+    handles = [m.register_forward_hook(lambda mod, args, out: ff_io.append((mod, args[0], out)))
+               for m in unet.modules() if isinstance(m, FeedForward)]
+    _reset_counts()
+    try:
+        with torch.no_grad():
+            eps = unet(lat, 501, ctx, hooks=cross)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    unet_counts = _counts()
+    log(f"[fused] sd15 UNet (random weights, seed 0, bf16) built and called at {FUSED_ROWS} rows "
+        f"in {time.monotonic() - t0:.1f} s: {len(ff_io)} FeedForward and "
+        f"{len(cross.calls)} cross-attention calls captured")
+    _check_opt_in_idle(unet_counts, "fused (the plain UNet call)")
+    if len(ff_io) != 16 or len(cross.calls) != 16:
+        raise RuntimeError(f"expected 16 FeedForward and 16 cross-attention calls, got "
+                           f"{len(ff_io)} and {len(cross.calls)}")
+    if not torch.isfinite(eps).all():
+        raise RuntimeError("the UNet call gave a non-finite output")
+
+    def weights(mod):
+        return (mod.geglu_proj.weight, mod.geglu_proj.bias, mod.proj_out.weight, mod.proj_out.bias)
+
+    def flat(meta, q, k, v, o):
+        b, h, sq, d = q.shape
+        return (*(t.reshape(b * h, t.shape[2], d).contiguous() for t in (q, k, v)),
+                k.shape[2], d ** -0.5)
+
+    # the opt-in entry points on each captured call, against the module's result
+    _reset_counts()
+    for name, calls in (("K6", [(x, weights(mod), want) for mod, x, want in ff_io]),
+                        ("K5", [(flat(*c), None, c[4]) for c in cross.calls])):
+        for args, w, want in calls:
+            if name == "K6":
+                got = gg.geglu_mlp(args, *w, force_fused=True)
+            else:
+                got = fa.crossk_attention_bhsd(*args)
+                want = want.reshape(got.shape)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            bound = KERNEL_RTOL * want.float().abs().max().item()
+            log(f"[fused]   {name} {tuple(want.shape)}: max_abs_err={err:.3e} (bound {bound:.3e})")
+            if not (np.isfinite(err) and err <= bound):
+                raise RuntimeError(f"{name} at {tuple(want.shape)} disagrees with the module's "
+                                   f"plain result: {err} > {bound}")
+
+    # one gradient through K6's autograd.Function at the 64x64 shape
+    mod, x, _ = ff_io[0]
+
+    def grad(force):
+        xg = x.detach().clone().requires_grad_(True)
+        out = gg.geglu_mlp(xg, *weights(mod), force_fused=force)
+        (gx,) = torch.autograd.grad(torch.sin(out.float()).sum(), xg)
+        return gx.float()
+
+    g_kernel, g_plain = grad(True), grad(False)
+    grad_err = ((g_kernel - g_plain).norm() / g_plain.norm()).item()
+    counts = _counts()
+    log(f"[fused] gradient wrt x through K6 at {tuple(x.shape)}: rel L2 {grad_err:.3e} from the "
+        f"plain path's (bound {GRAD_RTOL}); launches {json.dumps(counts)}")
+    if not (np.isfinite(grad_err) and grad_err <= GRAD_RTOL):
+        raise RuntimeError(f"K6 gradient disagrees with the plain path: {grad_err}")
+    want_counts = {"geglu_fused": len(ff_io) + 1, "crossk_attention": len(cross.calls)}
+    if {k: counts[k] for k in want_counts} != want_counts:
+        raise RuntimeError(f"launch counts {counts} differ from the calls made {want_counts}")
+
+    # summed time of the 16 calls of each kernel against the module's own path
+    ff_args = [(x, weights(mod)) for mod, x, _ in ff_io]
+    cross_args = [flat(*c) for c in cross.calls]
+    cross_bhsd = [(q, k, v, q.shape[-1] ** -0.5) for _, q, k, v, _ in cross.calls]
+    with torch.no_grad():
+        times = {
+            "K6": _time_ms(lambda: [gg.geglu_mlp(a, *w, force_fused=True) for a, w in ff_args], 10),
+            "FeedForward plain": _time_ms(lambda: [mod(a) for mod, a, _ in ff_io], 10),
+            "K5": _time_ms(lambda: [fa.crossk_attention_bhsd(*a) for a in cross_args], 10),
+            "cross-attention plain": _time_ms(lambda: [fa.attention(*a) for a in cross_bhsd], 10),
+        }
+    log(f"[fused] summed ms of the 16 calls (CUDA events): K6 {times['K6']:.3f} vs FeedForward "
+        f"plain {times['FeedForward plain']:.3f}; K5 {times['K5']:.3f} vs cross-attention plain "
+        f"{times['cross-attention plain']:.3f}")
+    del unet, ff_io, cross, ff_args, cross_args, cross_bhsd
+    torch.cuda.empty_cache()
+    return {"launches": counts, "ms": times, "grad_rel_err": grad_err}
 
 
 def _png_to_array(b64: str) -> np.ndarray:
@@ -407,7 +659,7 @@ def phase_serving(steps: int) -> dict:
         server.edit(pre(images[0]), *prompts[0], cfg=cfg, inv_cfg=inv_cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launch_counts()
+        _reset_counts()
         t0 = time.monotonic()
         # two concurrent submits ...
         futs = [server.submit(EditRequest(pre(images[i]), *prompts[i], cfg=cfg,
@@ -432,7 +684,7 @@ def phase_serving(steps: int) -> dict:
         results = [f.result(timeout=900) for f in futs]
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
-        counts = dict(fa.LAUNCHES)
+        counts = _counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
         if httpd is not None:
@@ -456,6 +708,7 @@ def phase_serving(steps: int) -> dict:
     missing = [k for k in FWD_COUNTERS if counts[k] == 0]
     if missing:
         raise RuntimeError(f"main path never launched: {missing}")
+    _check_opt_in_idle(counts, "serving")
     return {"seconds_per_edit": secs / 3, "launches": counts, "peak_bytes": peak}
 
 
@@ -480,13 +733,13 @@ def phase_nti(steps: int, inner: int) -> dict:
     image = (np.random.RandomState(2).rand(512, 512, 3) * 255).astype(np.uint8)
     try:
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launch_counts()
+        _reset_counts()
         t0 = time.monotonic()
         res = server.edit(pre(image), "a cat sitting next to a mirror",
                           "a tiger sitting next to a mirror", cfg=cfg)
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
-        counts = dict(fa.LAUNCHES)
+        counts = _counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()
@@ -498,9 +751,10 @@ def phase_nti(steps: int, inner: int) -> dict:
         f"(torch.cuda.max_memory_allocated); {iters} inner iterations "
         f"(UNet forward + backward) over {steps} steps")
     log(f"[nti] kernel launches during the edit: {json.dumps(counts)}")
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in FLASH_COUNTERS if counts[k] == 0]
     if missing:
         raise RuntimeError(f"nti path never launched: {missing}")
+    _check_opt_in_idle(counts, "nti")
     grad = phase_grad_check(inverter)
     return {"seconds_per_edit": secs, "launches": counts, "peak_bytes": peak,
             "inner_iterations": iters, **grad}
@@ -598,12 +852,15 @@ def _multipart(fields: dict, png: bytes):
     return b"".join(parts), f"multipart/form-data; boundary={boundary}"
 
 
+PHASES = ("device", "build", "kernels", "fused", "serving", "nti")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--nti_steps", type=int, default=50)
     ap.add_argument("--nti_inner", type=int, default=10)
-    ap.add_argument("--phases", default="device,build,kernels,serving,nti")
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -612,6 +869,8 @@ def main(argv=None) -> int:
         phase_build()
     rows = phase_kernels() if "kernels" in phases else []
     by_phase = {}
+    if "fused" in phases:
+        by_phase["fused"] = phase_fused()["launches"]
     if "serving" in phases:
         phase_tiny_reference()
         by_phase["serving"] = phase_serving(args.steps)["launches"]
@@ -622,7 +881,7 @@ def main(argv=None) -> int:
         r["launches_by_phase"] = {p: c[counter] for p, c in by_phase.items()}
         r["launches"] = sum(r["launches_by_phase"].values())
     print(json.dumps({"kernels": rows}))
-    if set(phases) != {"device", "build", "kernels", "serving", "nti"}:
+    if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}): no result line")
         return 0
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,8 @@
-// Helpers shared by the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): the bf16 tensor-core product mma.sync m16n8k16
-// with fp32 accumulation, its fragment loads from shared memory and from
-// accumulators, and a zero-padded tile load into shared memory.
+// Helpers shared by the port's kernels (flash_attention.cu,
+// flash_attention_bwd.cu, crossk_attention.cu, geglu.cu): the bf16
+// tensor-core product mma.sync m16n8k16 with fp32 accumulation, its fragment
+// loads from shared memory and from accumulators, and a zero-padded row load
+// into shared memory.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t4..2t4+1), a1 = (g+8, 2t4..),
@@ -87,15 +88,15 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[2], const __nv_bfloat1
   b[1] = pack_bf16(y[8 * LD], y[9 * LD]);
 }
 
-// Copy rows [row0, row0 + ROWS) x cols [0, DP) of a (rows, d) slab into shared
-// memory with pitch LD; rows >= nrows and cols >= d are zero.  d % 8 == 0 and
-// 16-byte aligned rows are checked by the Python wrapper.
-template <int DP, int LD, int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int row0, int nrows,
-                                          int d, int tid) {
+// Copy rows [row0, row0 + rows) x cols [0, DP) of a (nrows, d) slab into
+// shared memory with pitch LD; rows >= nrows and cols >= d are zero.  d % 8
+// == 0 and 16-byte aligned rows are checked by the Python wrapper.
+template <int DP, int LD, int NTHREADS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long row_stride, int row0, int rows,
+                                          int nrows, int d, int tid) {
   constexpr int CHUNKS = DP / 8;
-  for (int idx = tid; idx < ROWS * CHUNKS; idx += NTHREADS) {
+  for (int idx = tid; idx < rows * CHUNKS; idx += NTHREADS) {
     const int r = idx / CHUNKS;
     const int c = (idx % CHUNKS) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -104,6 +105,14 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
     }
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
   }
+}
+
+// load_rows of a tile of ROWS rows
+template <int DP, int LD, int ROWS, int NTHREADS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long row_stride, int row0, int nrows,
+                                          int d, int tid) {
+  load_rows<DP, LD, NTHREADS>(dst, src, row_stride, row0, ROWS, nrows, d, tid);
 }
 
 }  // namespace

@@ -25,6 +25,12 @@ its kernel for a CUDA tensor and raises on anything it does not take; for a
 CPU tensor it computes the plain PyTorch version beside it (same exact
 softmax in fp32), which torch differentiates.
 
+The short-K cross-attention kernel (K5) is csrc/crossk_attention.cu behind
+``crossk_attention_bhsd``, the JAX entry point of the same name: an opt-in for
+callers with flat (BH, Sq, D) layouts, as in JAX.  It also stands for K5's
+Pallas prototype S2 (``cross_shortk`` in scripts/attn_microbench3.py), which
+passes K/V already padded to 128 rows.
+
 The dispatchers `attention` / `attention_packed` gate on device and shape, as
 the JAX ones do: long self-attention on the card goes to the wrappers (which
 raise for a dtype the kernel does not take), everything else (CPU tensors,
@@ -49,6 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_bhsd_blockwise": 0,
     "flash_attention_bwd_dq": 0,
     "flash_attention_bwd_dkv": 0,
+    "crossk_attention": 0,
 }
 
 
@@ -65,18 +72,19 @@ _ptr = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_longlong
 _LIBS = (("eti_flash_attention", ("flash_attention.cu",)),
-         ("eti_flash_attention_bwd", ("flash_attention_bwd.cu",)))
-_loaded: Optional[Tuple[ctypes.CDLL, ctypes.CDLL]] = None
+         ("eti_flash_attention_bwd", ("flash_attention_bwd.cu",)),
+         ("eti_crossk_attention", ("crossk_attention.cu",)))
+_loaded: Optional[Tuple[ctypes.CDLL, ctypes.CDLL, ctypes.CDLL]] = None
 
 
-def build_kernels() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
+def build_kernels() -> Tuple[ctypes.CDLL, ctypes.CDLL, ctypes.CDLL]:
     """Build (at first use, one nvcc per source, side by side) and load the
-    forward and backward attention kernel libraries."""
+    forward, backward and short-K attention kernel libraries."""
     global _loaded
     if _loaded is None:
         from .cuda_build import load_libraries
 
-        fwd, bwd = load_libraries(_LIBS)
+        fwd, bwd, crossk = load_libraries(_LIBS)
         fn = fwd.eti_flash_attention_fwd
         fn.argtypes = [_ptr] * 5 + [_i32] * 5 + [_i64] * 14 + [ctypes.c_float, _ptr]
         fn.restype = _i32
@@ -84,7 +92,10 @@ def build_kernels() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
             fn.argtypes = [_ptr] * 8 + [_i32] * 5 + [ctypes.POINTER(_i64), ctypes.c_float,
                                                      _ptr]
             fn.restype = _i32
-        _loaded = fwd, bwd
+        fn = crossk.eti_crossk_attention
+        fn.argtypes = [_ptr] * 4 + [_i32] * 4 + [_i64] * 8 + [ctypes.c_float, _ptr]
+        fn.restype = _i32
+        _loaded = fwd, bwd, crossk
     return _loaded
 
 
@@ -164,7 +175,7 @@ def _fwd_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool):
         lse = torch.empty((batch, h, sq) if heads else (batch, 1, sq),
                           dtype=torch.float32, device=q.device)
         lse_st = (h * sq, sq)
-    lib, _ = build_kernels()
+    lib = build_kernels()[0]
     flat = [s for x in (q, k, v, o) for s in _strides(x, heads, d)]
     err = lib.eti_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -376,7 +387,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, scale: float, heads: Optional[in
     dvec = torch.empty((batch * h, sq), dtype=torch.float32, device=q.device)
     strides = _bwd_strides((q, k, v, o, do, dq, None, None), heads, d)
     strides[24], strides[25] = h * sq, sq
-    _, lib = build_kernels()
+    lib = build_kernels()[1]
     err = lib.eti_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), batch, h, sq, sk, d,
@@ -403,7 +414,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, dvec, scale: float,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     strides = _bwd_strides((q, k, v, None, do, None, dk, dv), heads, d)
     strides[24], strides[25] = h * sq, sq
-    _, lib = build_kernels()
+    lib = build_kernels()[1]
     err = lib.eti_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch, h, sq, sk, d,
@@ -418,6 +429,62 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, heads: Optional[int] 
     """(dQ, dK, dV): K4a, then K4b on the D it wrote (`_flash_bwd_impl`)."""
     dq, dvec = flash_attention_bwd_dq(q, k, v, o, lse, do, scale, heads)
     return (dq, *flash_attention_bwd_dkv(q, k, v, lse, do, dvec, scale, heads))
+
+
+# ---------------------------------------------------------------------------
+# short-K cross-attention (K5)
+# ---------------------------------------------------------------------------
+
+# K5's limits (csrc/crossk_attention.cu): bf16, head dim a multiple of 8 up to
+# 160 (SD-1.5's 16x16 and mid levels), at most 256 keys (a warp keeps the
+# whole score row in registers)
+CROSSK_MAX_HEAD_DIM = 160
+CROSSK_MAX_KEYS = 256
+
+
+def crossk_attention_plain(q, k, v, sk: int, scale: float):
+    """K5's function over flat (BH, Sq, D) q and (BH, >= sk, D) k / v: fp32
+    scores over the first `sk` keys, exact softmax (row max subtracted),
+    probabilities rounded to v's dtype for an fp32 PV product, as the Pallas
+    kernel rounds them."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k[:, :sk].float()) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bqk,bkd->bqd", p.float(), v[:, :sk].float()).to(q.dtype)
+
+
+def crossk_attention_bhsd(q, k, v, sk: int, scale: float, block_q: int = 1024):
+    """Cross-attention over flat (BH, Sq, D) q with a short key range: the
+    first `sk` rows of (BH, >= sk, D) k and v (SD: 77 text tokens; K5's
+    prototype S2 passes K/V already padded to 128 rows).  The kernel pads in
+    shared memory and masks keys >= sk; block_q is ignored (kept for the JAX
+    signature).  On the card it takes bf16, a head dim that is a multiple of
+    8 up to 160 and sk up to 256, and raises otherwise; a CPU tensor takes
+    the plain version.  No gradient: the JAX kernel has none either."""
+    if q.device.type == "cpu":
+        return crossk_attention_plain(q, k, v, sk, scale)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, x, 3)
+    bh, sq, d = q.shape
+    _check_head_dim(d, CROSSK_MAX_HEAD_DIM)
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if not 0 < sk <= min(k.shape[1], CROSSK_MAX_KEYS):
+        raise ValueError(f"sk={sk}: kernel takes 1 to {CROSSK_MAX_KEYS} keys, "
+                         f"at most the {k.shape[1]} rows of k")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v on different devices")
+    _check_grid(bh, 1, sq, sk)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = build_kernels()[2]
+    err = lib.eti_crossk_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, sq, sk, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        o.stride(0), o.stride(1), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"short-K attention kernel launch failed: CUDA error {err}")
+    LAUNCHES["crossk_attention"] += 1
+    return o
 
 
 # the JAX dispatch takes its one-pass kernel (block_k == S) up to this length

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 forward kernel (K1-K3) with its LSE, the backward kernels (K4a dQ, K4b
-dK/dV), and autograd through the dispatchers.
+dK/dV), autograd through the dispatchers, the short-K cross-attention kernel
+(K5) and the fused GEGLU kernel (K6) with its autograd.Function.
 
 Marked `cuda`; each test skips without a card (a CUDA kernel has no CPU
 mode).  Imports neither JAX nor tests/conftest.py's fixtures, so it runs on a
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from eta_inversion_tpu_torch.ops import flash_attention as tfa
+from eta_inversion_tpu_torch.ops import geglu as tgeglu
 
 # relative to the largest output (randn inputs give outputs of size about
 # sqrt(e/S), not O(1)): bf16 rounding of the output and of the probabilities
@@ -213,3 +215,119 @@ def test_cuda_models_build_on_the_card_by_default():
     model, _ = load_diffusion_model("tiny")
     assert model.device.type == "cuda"
     assert all(p.is_cuda for p in model.nets.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,d,sk,rows", [
+    (32, 4096, 40, 77, 77), (32, 1024, 80, 77, 77), (32, 256, 160, 77, 77),  # sd15
+    (8, 300, 64, 256, 256),    # the most keys; ragged Sq
+    (4, 200, 8, 13, 13),       # few keys, the smallest head dim
+    (16, 4096, 40, 77, 128),   # S2: K/V padded to 128 rows
+])
+def test_cuda_crossk_matches_plain(bh, sq, d, sk, rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    (q,) = _inputs((bh, sq, d), seed=21)[:1]
+    k, v = _inputs((bh, rows, d), seed=22)[:2]
+    scale = d ** -0.5
+    tfa.reset_launch_counts()
+    got = tfa.crossk_attention_bhsd(q, k, v, sk, scale)
+    want = tfa.crossk_attention_plain(q, k, v, sk, scale)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["crossk_attention"] == 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_crossk_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _inputs((2, 256, 40))
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.crossk_attention_bhsd(q.float(), k.float(), v.float(), 77, 0.1)
+    a = torch.zeros(2, 64, 168, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 160"):
+        tfa.crossk_attention_bhsd(a, a, a, 64, 0.1)
+    kk = torch.zeros(2, 300, 40, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="256 keys"):
+        tfa.crossk_attention_bhsd(q, kk, kk, 257, 0.1)
+    with pytest.raises(ValueError, match="rows of k"):
+        tfa.crossk_attention_bhsd(q, k[:, :77], v[:, :77], 78, 0.1)
+
+
+def _geglu(n, c, inner, seed):
+    """Seeded bf16 x (n, C) and nn.Linear-layout weights on the card, at
+    tests/test_kernels.py's scales."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, s):
+        return (torch.randn(shape, generator=g, device="cuda") * s).bfloat16()
+
+    return (r(n, c, s=0.5), r(2 * inner, c, s=c ** -0.5), r(2 * inner, s=0.1),
+            r(c, inner, s=inner ** -0.5), r(c, s=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,inner", [
+    (2048, 320, 1280), (512, 640, 2560), (256, 1280, 5120),  # the sd15 levels
+    (1000, 320, 1280),   # ragged rows: a partial last row block
+    (300, 72, 128),      # C not a multiple of 16, one I step
+])
+def test_cuda_geglu_matches_plain(n, c, inner):
+    """K6 against its plain version: within 2% of the plain output's largest
+    magnitude (both keep the projection in fp32 and round the gated product
+    to bf16, so they differ where a product rounds the other way)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = _geglu(n, c, inner, seed=n + c)
+    tgeglu.reset_launch_counts()
+    got = tgeglu.geglu_mlp_fused(*args)
+    want = tgeglu.geglu_mlp_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert tgeglu.LAUNCHES["geglu_fused"] == 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_geglu_autograd_matches_plain_autograd():
+    """Gradients of sum(sin(out)) through geglu_mlp(force_fused=True) (K6
+    forward, the plain path's vjp backward) against autograd of the plain
+    path, same bf16 inputs: relative L2 within 2%."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    base = _geglu(2048, 320, 1280, seed=5)
+
+    def grads(force):
+        xs = [t.clone().requires_grad_(True) for t in base]
+        torch.sin(tgeglu.geglu_mlp(xs[0].view(2, 1024, 320), *xs[1:],
+                                   force_fused=force).float()).sum().backward()
+        return [t.grad.float() for t in xs]
+
+    tgeglu.reset_launch_counts()
+    got = grads(True)
+    assert tgeglu.LAUNCHES["geglu_fused"] == 1
+    for g, w, name in zip(got, grads(False), ("x", "w1", "b1", "w2", "b2")):
+        assert (g - w).norm().item() <= 2e-2 * w.norm().item(), name
+
+
+@pytest.mark.cuda
+def test_cuda_geglu_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, w1, b1, w2, b2 = _geglu(256, 320, 1280, seed=1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tgeglu.geglu_mlp_fused(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgeglu.geglu_mlp_fused(x, w1, b1, w2.t().contiguous().t(), b2)
+    big = _geglu(256, 1288, 128, seed=2)
+    with pytest.raises(ValueError, match="up to 1280"):
+        tgeglu.geglu_mlp_fused(*big)
+    odd = _geglu(256, 64, 192, seed=3)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tgeglu.geglu_mlp_fused(*odd)
+    # the dispatch gate takes fp32 to the plain path, as JAX does, launching nothing
+    tgeglu.reset_launch_counts()
+    tgeglu.geglu_mlp(x.float(), w1, b1, w2, b2, force_fused=True)
+    assert tgeglu.LAUNCHES["geglu_fused"] == 0
