@@ -19,7 +19,16 @@ Phases, in order; any failure exits non-zero before the last line:
                for the attention kernels; F.linear, F.gelu, the multiply and
                F.linear for the fused GEGLU), and each kernel's bound (the
                least time the card could take).  S2, the Pallas prototype of
-               K5, is K5's kernel at the prototype's shapes.
+               K5, is K5's kernel at the prototype's shapes; S1 and S3, the
+               prototypes of K3, are its kernel with a chosen tile and bf16 or
+               fp32 (TF32) operands, S4 the multi-head kernel with the
+               prototype's TF32 operands (its bf16 mode and K1's route timed
+               beside it), all at the prototypes' (B, H, S, D) = (32, 8, 4096,
+               40), held against the plain version computed a chunk of heads
+               at a time; the TF32 rows must also be closer on average to the
+               fp32 result than the bf16 mode.  K4a / K4b at d = 512, then one
+               gradient through the full-width sd15 VAE mid-block attention
+               (512 px: S = 4096, d = 512) against the plain path's.
 4. fused    -- the opt-in entry points of K5 and K6 (the JAX package keeps
                both off its served paths) on one full-width sd15 UNet call
                (random weights from a seed, bf16, the ptp backward's 4 rows):
@@ -29,13 +38,21 @@ Phases, in order; any failure exits non-zero before the last line:
                against the module's own plain result; the summed time of the
                16 calls against the plain path's; one gradient through K6's
                autograd.Function at the 64x64 shape against the plain path's.
-5. serving  -- the sd15 etainv+ptp edit server (random weights from a seed)
+5. microbench -- both attention microbenchmarks
+               (eta_inversion_tpu_torch.microbench: flash_sweep, 8 variants;
+               attn_multihead_bench, 5) at full width.  One call of each
+               variant on a unit-scale input must be within 2% of the plain
+               version's largest output (every tile and operand mode the
+               benches launch); then, counted, the benches as a user runs
+               them: every variant must run and end within 2% of its first
+               variant's largest output.
+6. serving  -- the sd15 etainv+ptp edit server (random weights from a seed)
                answers three 512x512 edits: two submitted concurrently and one
                HTTP POST /v1/edit on 127.0.0.1.  Each result must be a finite
                512x512x3 image, and the launch counts of the forward kernels
                (K1-K3) must have grown during the edits.  A tiny-preset edit on
                the card is also held against the same edit on the CPU.
-6. nti      -- the sd15 nti+ptp edit server answers one 512x512 edit (null-
+7. nti      -- the sd15 nti+ptp edit server answers one 512x512 edit (null-
                text inversion: Adam on the null embedding through UNet
                gradients, 10 inner steps per step); the result must be finite
                512x512x3 and every flash kernel's launch count, the backward's
@@ -46,10 +63,10 @@ Phases, in order; any failure exits non-zero before the last line:
                self-attention share dropped must miss the same bound.
 
 Each phase sets the launch counts to 0 before it drives its path and checks
-them after: the kernels of its path must have been launched, and K5 and K6
-not at all on the served paths (5, 6).  The line before the last is
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.  Imports
-nothing of JAX.
+them after: the kernels of its path must have been launched, and K5, K6 and
+the microbenchmarks' kernels not at all on the served paths (6, 7).  The
+line before the last is {"kernels": [...]}; the last line is {"ok": true,
+"device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -104,6 +121,7 @@ GRAD_RTOL = 0.1
 # clock (CUDA C++ programming guide, arithmetic instruction throughput for
 # compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_EXP = 16 * 132 * 1.98e9
 # fp32 outside the tensor cores (an FMA counts 2), for K6's gate: per gated
@@ -158,12 +176,54 @@ KERNELS = [
      "counter": "geglu_fused", "source": "geglu.cu",
      "shapes": [("geglu", 16384, 320, 1280), ("geglu", 4096, 640, 2560),
                 ("geglu", 1024, 1280, 5120)]},
+    # the attention microbenchmarks' kernels at the prototypes' (32, 8, 4096,
+    # 40): sweep shapes (kind, BH, S, D, D in memory), multi-head (B, S, H, d)
+    {"name": "S1 flash, TF32 operands, D native",
+     "replaces": "scripts/flash_sweep.py:70 (flash, mm_bf16=False -> kernel :33)",
+     "counter": "flash_attention_bhsd_tf32", "shapes": [("tiled_tf32", 256, 4096, 40, 40)]},
+    {"name": "S1 flash, TF32 operands, D padded to 128",
+     "replaces": "scripts/flash_sweep.py:70 (flash, mm_bf16=False -> kernel :33)",
+     "counter": "flash_attention_bhsd_tf32", "shapes": [("tiled_tf32", 256, 4096, 40, 128)]},
+    {"name": "S1 flash, bf16 operands, D native",
+     "replaces": "scripts/flash_sweep.py:70 (flash, mm_bf16=True -> kernel :33)",
+     "counter": "flash_attention_bhsd_tiled", "shapes": [("tiled", 256, 4096, 40, 40)]},
+    {"name": "S1 flash, bf16 operands, D padded to 128",
+     "replaces": "scripts/flash_sweep.py:70 (flash, mm_bf16=True -> kernel :33)",
+     "counter": "flash_attention_bhsd_tiled", "shapes": [("tiled", 256, 4096, 40, 128)]},
+    {"name": "S3 prod_flash (TF32, flat route)",
+     "replaces": "scripts/attn_multihead_bench.py:65 (prod_flash -> prod_kernel :40)",
+     "counter": "flash_attention_bhsd_tf32", "shapes": [("prod", 256, 4096, 40, 40)]},
+    {"name": "S4 v8_multihead (TF32 operands)",
+     "replaces": "scripts/attn_multihead_bench.py:130 (v8_multihead -> mh_kernel :99)",
+     "counter": "flash_attention_multihead_tf32", "source": "flash_multihead.cu",
+     "shapes": [("multihead", 32, 4096, 8, 40)]},
+    # the backward above head dim 128: the VAE mid-block attention at 512
+    # and 256 px (one head, flat)
+    {"name": "K4a flash_attention_bwd_dq, d=512",
+     "replaces": "eta_inversion_tpu/ops/flash_attention.py:218 (_flash_bwd_impl -> "
+                 "_flash_dq_kernel :144)",
+     "counter": "flash_attention_bwd_dq",
+     "shapes": [("bwd_dq", 1, 4096, 1, 512), ("bwd_dq", 2, 1024, 1, 512)]},
+    {"name": "K4b flash_attention_bwd_dkv, d=512",
+     "replaces": "eta_inversion_tpu/ops/flash_attention.py:235 (_flash_bwd_impl -> "
+                 "_flash_dkv_kernel :170)",
+     "counter": "flash_attention_bwd_dkv",
+     "shapes": [("bwd_dkv", 1, 4096, 1, 512), ("bwd_dkv", 2, 1024, 1, 512)]},
 ]
 FWD_COUNTERS = ("flash_attention_packed", "flash_attention_bhsd_onepass",
                 "flash_attention_bhsd_blockwise")
 FLASH_COUNTERS = FWD_COUNTERS + ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-# the JAX package keeps K5 and K6 off its served paths, and so does the port
-OPT_IN_COUNTERS = ("crossk_attention", "geglu_fused")
+# the JAX package keeps K5 and K6 off its served paths, and so does the port;
+# the microbenchmarks' kernels (S1, S3, S4) are on no served path either
+MICROBENCH_COUNTERS = ("flash_attention_bhsd_tiled", "flash_attention_bhsd_tf32",
+                       "flash_attention_multihead_tf32")
+OPT_IN_COUNTERS = ("crossk_attention", "geglu_fused", "flash_attention_multihead",
+                   *MICROBENCH_COUNTERS)
+# the VAE gradient check: kernels against the plain path, relative L2 per
+# gradient.  One attention layer: the kernels round P and dS to bf16, the
+# plain path's bf16 autograd rounds dP and its products, about 0.1-0.3% of
+# the gradient; a dropped or mis-scaled dQ / dK / dV term is far above 1%
+VAE_GRAD_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -234,12 +294,13 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _roofline(mma_flops, exps, fp32_flops, nbytes):
+def _roofline(mma_flops, exps, fp32_flops, nbytes, tf32_flops=0):
     """(ms, "operations" or "bytes"): the least time the card could take for
-    one call: tensor-core flops at the bf16 peak, exponentials at the MUFU
-    rate and other fp32 flops at the fp32 peak, against each input read and
-    each output written once at the HBM rate."""
-    ops_s = max(mma_flops / PEAK_BF16_FLOPS, exps / PEAK_EXP, fp32_flops / PEAK_FP32_FLOPS)
+    one call: tensor-core flops at the bf16 (or TF32) peak, exponentials at
+    the MUFU rate and other fp32 flops at the fp32 peak, against each input
+    read and each output written once at the HBM rate."""
+    ops_s = max(mma_flops / PEAK_BF16_FLOPS, tf32_flops / PEAK_TF32_FLOPS, exps / PEAK_EXP,
+                fp32_flops / PEAK_FP32_FLOPS)
     bytes_s = nbytes / PEAK_HBM_BYTES
     return (ops_s * 1e3, "operations") if ops_s >= bytes_s else (bytes_s * 1e3, "bytes")
 
@@ -251,7 +312,10 @@ def _bound(kind, bh, s, d):
     tensors = {"bwd_dq": 6, "bwd_dkv": 6}.get(kind, 4)  # q,k,v,o,dO,dQ / q,k,v,dO,dK,dV
     vectors = 2 if kind in ("bwd_dq", "bwd_dkv") else 0  # LSE and D, fp32
     nbytes = tensors * bh * s * d * 2 + vectors * bh * s * 4
-    return _roofline(mult * bh * s * s * d, bh * s * s, 0, nbytes)
+    flops = mult * bh * s * s * d
+    if kind in ("tiled_tf32", "prod", "multihead"):
+        return _roofline(0, bh * s * s, 0, nbytes, tf32_flops=flops)
+    return _roofline(flops, bh * s * s, 0, nbytes)
 
 
 # now and then a profiler session records no device kernel at all (seen once
@@ -277,7 +341,7 @@ def _top_kernel(fn) -> str:
 def _sdpa(kind, q, k, v, h, d):
     """(B, H, S, D) views of the kernel's operands for
     F.scaled_dot_product_attention."""
-    if kind in ("packed", "bwd_dq", "bwd_dkv"):
+    if kind in ("packed", "bwd_dq", "bwd_dkv", "multihead"):
         return [x.view(x.shape[0], x.shape[1], h, d).transpose(1, 2) for x in (q, k, v)]
     return [x[:, None] for x in (q, k, v)]
 
@@ -408,7 +472,118 @@ def _geglu_case(kind, shape, seed):
     return run, plain, lambda: [(run(), plain())], library, bound, f"shape(n,C,I)={shape}"
 
 
-CASES = {"crossk": _crossk_case, "crossk_padded": _crossk_case, "geglu": _geglu_case}
+# the plain versions at the prototypes' B*H = 256 would hold 256 x 4096^2 fp32
+# scores (17 GB): they run this many heads (a chunk of batch elements) at a time
+PLAIN_CHUNK_HEADS = 16
+
+
+def _chunked(plain, q, k, v, rows):
+    """plain over the leading dim `rows` at a time, concatenated."""
+    return torch.cat([plain(q[i:i + rows], k[i:i + rows], v[i:i + rows])
+                      for i in range(0, q.shape[0], rows)])
+
+
+def _sweep_case(kind, shape, seed):
+    """S1 / S3: K3's kernel through flash_attention_bhsd_tiled at (BH, S, D)
+    with D zero-padded to `dpad` in device memory, operands bf16 ("tiled") or
+    fp32 on the TF32 tensor cores ("tiled_tf32"; "prod" is S3, TF32 with the
+    prototype's tile, and also times its split / merge transposes).  The
+    TF32 rows also check that their mean error against the fp32 plain result
+    is below the bf16 mode's on the same inputs."""
+    from eta_inversion_tpu_torch.microbench import attn_multihead_bench, merge, split
+
+    bh, s, d, dpad = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.nn.functional.pad(torch.randn(bh, s, d, generator=g, device="cuda"),
+                                       (0, dpad - d)).bfloat16() for _ in range(3))
+    scale = d ** -0.5
+    tile = attn_multihead_bench.PROD_TILE if kind == "prod" else None
+    operands = "bf16" if kind == "tiled" else "fp32"
+    run = lambda: fa.flash_attention_bhsd_tiled(q, k, v, scale, operands, tile)  # noqa: E731
+    plain = lambda: _chunked(  # noqa: E731
+        lambda *a: fa.flash_attention_bhsd_plain(*a, scale), q, k, v, PLAIN_CHUNK_HEADS)
+    extra = {}
+
+    def check():
+        got, want = run(), plain()
+        if operands == "fp32":
+            exact = _chunked(lambda *a: fa.flash_attention_bhsd_plain(*(x.float() for x in a),
+                                                                      scale),
+                             q, k, v, PLAIN_CHUNK_HEADS)
+            bf16 = fa.flash_attention_bhsd_tiled(q, k, v, scale, "bf16", tile)
+            extra["mean_abs_err"] = (got.float() - exact).abs().mean().item()
+            extra["bf16_mean_abs_err"] = (bf16.float() - exact).abs().mean().item()
+            log(f"[kernels]   mean |err| against the fp32 plain result: TF32 "
+                f"{extra['mean_abs_err']:.3e}, bf16 mode {extra['bf16_mean_abs_err']:.3e}")
+            if not extra["mean_abs_err"] < extra["bf16_mean_abs_err"]:
+                raise RuntimeError("the TF32 mode is not closer to the fp32 result than bf16")
+        if kind == "prod":  # S3's split of q, k, v and merge of o, as the prototype times them
+            b = bh // 8
+            packed = merge(q[..., :d], b)
+            extra["split_merge_ms"] = _time_ms(
+                lambda: [merge(split(packed), b)] + [split(packed) for _ in range(2)], 20)
+            log(f"[kernels]   split (q, k, v) + merge (o) around it: "
+                f"{extra['split_merge_ms']:.3f} ms")
+        return [(got, want)]
+
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q[:, None], k[:, None], v[:, None], scale=scale)
+    return (run, plain, check, library, _bound(kind, bh, s, dpad),
+            f"shape(BH,S,D)=({bh}, {s}, {d}) in D={dpad}", extra)
+
+
+def _multihead_case(kind, shape, seed):
+    """S4: the multi-head kernel at (B, S, H, d), the packed layout, default
+    tile, with the prototype's fp32 (TF32) operands; the plain version one
+    batch element (H heads) at a time.  Also checks that its mean error
+    against the fp32 plain result is below its bf16 mode's, and times its
+    bf16 mode beside K1's route (bf16, one block per (batch, head)) on the
+    same inputs: the layout question with equal operands."""
+    b, s, h, d = shape
+    q, k, v = _inputs("packed", b, s, h, d, seed=seed)
+    scale = d ** -0.5
+    run = lambda: fa.flash_attention_multihead(q, k, v, scale, h, "fp32")  # noqa: E731
+    plain = lambda: _chunked(  # noqa: E731
+        lambda *a: fa.flash_attention_packed_plain(*a, scale, h), q, k, v,
+        max(1, PLAIN_CHUNK_HEADS // h))
+    extra = {}
+
+    def check():
+        got, want = run(), plain()
+        exact = _chunked(lambda *a: fa.flash_attention_packed_plain(*(x.float() for x in a),
+                                                                    scale, h),
+                         q, k, v, max(1, PLAIN_CHUNK_HEADS // h))
+        bf16 = fa.flash_attention_multihead(q, k, v, scale, h, "bf16")
+        extra["mean_abs_err"] = (got.float() - exact).abs().mean().item()
+        extra["bf16_mean_abs_err"] = (bf16.float() - exact).abs().mean().item()
+        extra["bf16_max_abs_err"] = (bf16.float() - exact).abs().max().item()
+        bf16_bound = KERNEL_RTOL * exact.abs().max().item()
+        del exact
+        extra["bf16_mode_ms"] = _time_ms(
+            lambda: fa.flash_attention_multihead(q, k, v, scale, h, "bf16"), 10)
+        extra["k1_route_ms"] = _time_ms(lambda: fa.flash_attention_packed(q, k, v, scale, h), 10)
+        log(f"[kernels]   mean |err| against the fp32 plain result: TF32 "
+            f"{extra['mean_abs_err']:.3e}, bf16 mode {extra['bf16_mean_abs_err']:.3e} "
+            f"(bf16 max {extra['bf16_max_abs_err']:.3e}, bound {bf16_bound:.3e}); "
+            f"bf16 mode {extra['bf16_mode_ms']:.3f} ms, K1's route on the same inputs "
+            f"{extra['k1_route_ms']:.3f} ms")
+        if not extra["mean_abs_err"] < extra["bf16_mean_abs_err"]:
+            raise RuntimeError("S4's TF32 mode is not closer to the fp32 result than bf16")
+        if not extra["bf16_max_abs_err"] <= bf16_bound:
+            raise RuntimeError(f"S4's bf16 mode disagrees with the plain version: "
+                               f"{extra['bf16_max_abs_err']} > {bf16_bound}")
+        return [(got, want)]
+
+    qh, kh, vh = _sdpa(kind, q, k, v, h, d)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, scale=scale)
+    return (run, plain, check, library, _bound(kind, b * h, s, d), f"shape(B,S,H,d)={shape}",
+            extra)
+
+
+CASES = {"crossk": _crossk_case, "crossk_padded": _crossk_case, "geglu": _geglu_case,
+         "tiled": _sweep_case, "tiled_tf32": _sweep_case, "prod": _sweep_case,
+         "multihead": _multihead_case}
 
 
 def phase_kernels() -> list:
@@ -417,7 +592,7 @@ def phase_kernels() -> list:
         errs, first = [], None
         for j, (kind, *shape) in enumerate(kern["shapes"]):
             make = CASES.get(kind, _attention_case)
-            run, plain, check, library, (bound_ms, bound_by), label = make(
+            run, plain, check, library, (bound_ms, bound_by), label, *extra = make(
                 kind, tuple(shape), 100 * i + j)
             err, bound = 0.0, 0.0
             for got, want in check():
@@ -425,20 +600,23 @@ def phase_kernels() -> list:
                 bound = max(bound, KERNEL_RTOL * want.float().abs().max().item())
             if not np.isfinite(err):
                 raise RuntimeError(f"{kern['name']} at {label}: non-finite output")
-            t_k, t_p, t_l = _time_ms(run, 20), _time_ms(plain, 5), _time_ms(library, 20)
-            lib_kernel = _top_kernel(library)
+            t_k, t_p = _time_ms(run, 20), _time_ms(plain, 5)
+            t_l, lib_kernel = _time_library(library)
             log(f"[kernels] {kern['name']:38s} {label} "
                 f"max_abs_err={err:.3e} (bound {bound:.3e} = {KERNEL_RTOL} x max|plain|) "
-                f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, library {t_l:.3f} ms "
-                f"[{lib_kernel}], bound {bound_ms:.4f} ms ({bound_by})")
+                f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, library "
+                f"{'none' if t_l is None else f'{t_l:.3f} ms'} [{lib_kernel}], "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
             if not err <= bound:
                 raise RuntimeError(f"{kern['name']} disagrees with its plain version: "
                                    f"{err} > {bound}")
             errs.append(err)
             if j == 0:
                 first = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": t_l, "library_kernel": lib_kernel}
+                         "library_ms": t_l, "library_kernel": lib_kernel,
+                         **(extra[0] if extra else {})}
             del run, plain, check, library
+            torch.cuda.empty_cache()
         source = kern.get("source") or (
             "flash_attention_bwd.cu" if kern["counter"].startswith("flash_attention_bwd")
             else "flash_attention.cu")
@@ -448,6 +626,119 @@ def phase_kernels() -> list:
                      "max_abs_err": max(errs), **first})
     torch.cuda.empty_cache()
     return rows
+
+
+def _time_library(library):
+    """(ms, name of its longest device kernel) of the library call, or (None,
+    "none (...)") where no backend of it takes the shape."""
+    try:
+        t_l = _time_ms(library, 20)
+    except RuntimeError as e:
+        return None, f"none ({str(e).splitlines()[0][:100]})"
+    return t_l, _top_kernel(library)
+
+
+def phase_vae_grad() -> dict:
+    """One gradient through the full-width sd15 VAE mid-block attention at
+    512 px (512 channels, one head, S = 4096, d = 512; random weights from a
+    seed, bf16): through the kernels (the blockwise forward with its LSE,
+    then K4a / K4b at d = 512) against the plain attention path, for the
+    input and the q / k / v projection weights."""
+    from eta_inversion_tpu_torch.models import SD15
+    from eta_inversion_tpu_torch.models.vae import VAEAttention
+
+    c = SD15.vae.block_out_channels[-1]
+    side = SD15.image_size // 2 ** (len(SD15.vae.block_out_channels) - 1)
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(0)
+        mod = VAEAttention(c, SD15.vae.norm_num_groups).cuda().to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(1, c, side, side, generator=g, device="cuda").bfloat16()
+
+    def grads():
+        mod.zero_grad()
+        xg = x.clone().requires_grad_(True)
+        torch.sin(mod(xg).float()).sum().backward()
+        return [xg.grad.float()] + [getattr(mod, n).weight.grad.float()
+                                    for n in ("to_q", "to_k", "to_v")]
+
+    _reset_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    counts = _counts()
+    gate = fa._kernel_eligible
+    try:
+        fa._kernel_eligible = lambda *a, **k: False
+        want = grads()
+    finally:
+        fa._kernel_eligible = gate
+    errs = {name: ((a - b).norm() / b.norm()).item()
+            for a, b, name in zip(got, want, ("x", "to_q", "to_k", "to_v"))}
+    log(f"[kernels] gradient through the sd15 VAE mid-block attention ({c} channels, "
+        f"S={side * side}, d={c}): kernels vs plain path rel L2 "
+        + ", ".join(f"d{n} {e:.3e}" for n, e in errs.items())
+        + f" (bound {VAE_GRAD_RTOL}); launches K3 {counts['flash_attention_bhsd_blockwise']} "
+        f"K4a {counts['flash_attention_bwd_dq']} K4b {counts['flash_attention_bwd_dkv']}")
+    if not all(np.isfinite(e) and e <= VAE_GRAD_RTOL for e in errs.values()):
+        raise RuntimeError(f"VAE attention gradient disagrees with the plain path: {errs}")
+    if counts["flash_attention_bwd_dq"] == 0 or counts["flash_attention_bwd_dkv"] == 0:
+        raise RuntimeError("the VAE attention gradient launched no backward kernel")
+    del mod, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_microbench() -> dict:
+    """Both attention microbenchmarks at full width (32, 8, 4096, 40).
+    First each variant's single call on a unit-scale input (the bench's
+    input x 10, so the scores spread over a few units) against the plain
+    version, within KERNEL_RTOL of its largest magnitude: the chained bench
+    shrinks its outputs toward a constant row, which cannot tell a wrong
+    kernel.  Then the benches as a user runs them, counts from 0: every
+    variant runs and its final output stays within KERNEL_RTOL of the first
+    variant's largest magnitude."""
+    from eta_inversion_tpu_torch import microbench
+    from eta_inversion_tpu_torch.microbench import attn_multihead_bench, flash_sweep
+
+    b, s, h, d = microbench.B, microbench.S, microbench.H, microbench.D
+    x = microbench.make_input(b, s, "cuda") * 10
+    want = _chunked(lambda *a: fa.flash_attention_packed_plain(*a, d ** -0.5, h),
+                    x, x * 0.5, x * 0.25, max(1, PLAIN_CHUNK_HEADS // h))
+    bound = KERNEL_RTOL * want.float().abs().max().item()
+    for mod in (flash_sweep, attn_multihead_bench):
+        for name, fn in mod.variants().items():
+            err = (mod.call(fn, x).float() - want.float()).abs().max().item()
+            log(f"[microbench] one call of {name:26s} on the unit-scale input vs plain: "
+                f"max_abs_err={err:.3e} (bound {bound:.3e})")
+            if not err <= bound:
+                raise RuntimeError(f"{name} disagrees with the plain version: {err} > {bound}")
+    del x, want
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    results = {}
+    for mod in (flash_sweep, attn_multihead_bench):
+        name = mod.__name__.rsplit(".", 1)[1]
+        log(f"[microbench] python -m eta_inversion_tpu_torch.microbench.{name} "
+            f"(B, H, S, D) = {(b, h, s, d)}, {microbench.LOOPS} chained calls per run:")
+        res = mod.run(b, s, "cuda", log=lambda m: log(f"[microbench]   {m}"))
+        for r in res:
+            bound = KERNEL_RTOL * r["max_abs_v0"]
+            if r["ms"] is None or not (np.isfinite(r["max_diff_vs_v0"])
+                                       and r["max_diff_vs_v0"] <= bound):
+                raise RuntimeError(f"{name} {r['name']}: did not run or differs from v0 by "
+                                   f"{r['max_diff_vs_v0']} (bound {bound})")
+        results[name] = res
+    counts = _counts()
+    log(f"[microbench] kernel launches: {json.dumps(counts)}")
+    n = sum(len(r) for r in results.values())
+    if n != 13:
+        raise RuntimeError(f"expected the prototypes' 13 variants, ran {n}")
+    for k in MICROBENCH_COUNTERS:
+        if counts[k] == 0:
+            raise RuntimeError(f"microbench never launched {k}")
+    torch.cuda.empty_cache()
+    return {"launches": counts, "results": results}
 
 
 # the served ptp backward's rows: [u_src, u_tgt, c_src, c_tgt]
@@ -852,7 +1143,7 @@ def _multipart(fields: dict, png: bytes):
     return b"".join(parts), f"multipart/form-data; boundary={boundary}"
 
 
-PHASES = ("device", "build", "kernels", "fused", "serving", "nti")
+PHASES = ("device", "build", "kernels", "fused", "microbench", "serving", "nti")
 
 
 def main(argv=None) -> int:
@@ -869,8 +1160,12 @@ def main(argv=None) -> int:
         phase_build()
     rows = phase_kernels() if "kernels" in phases else []
     by_phase = {}
+    if "kernels" in phases:
+        by_phase["vae_grad"] = phase_vae_grad()
     if "fused" in phases:
         by_phase["fused"] = phase_fused()["launches"]
+    if "microbench" in phases:
+        by_phase["microbench"] = phase_microbench()["launches"]
     if "serving" in phases:
         phase_tiny_reference()
         by_phase["serving"] = phase_serving(args.steps)["launches"]

@@ -25,7 +25,16 @@
 // above the ridge, so tensor-core issue and the S*S exponentials (the MUFU
 // rate) bound it.  The S x S probabilities never reach device memory.
 // Simple first: mma.sync m16n8k16 bf16 -> fp32, no TMA, no wgmma, no
-// pipelining; head dims up to 128.
+// pipelining.
+//
+// Head dims above 128 (the VAE mid-block attention, d = 512) do not fit a
+// thread's registers as fp32 dQ (or dK + dV) rows, so there, as in the
+// forward kernel, each thread keeps its accumulator fragments in shared-memory
+// slots and walks the head dim in 64-wide chunks (DC), with 2-warp blocks.  P
+// and dP are still recomputed from full-d products over the staged tiles.
+// Shared memory at d = 512 (pitch 520): K4a 32-row Q / dO and 32-key K / V
+// tiles (130 KB) plus 64 KB of dQ slots; K4b 32-key K / V and 16-query Q / dO
+// tiles (98 KB) plus 128 KB of dK + dV slots, 226 KB of the block's 227 KB.
 
 #include "flash_common.cuh"
 
@@ -58,14 +67,17 @@ __device__ __forceinline__ long long base(const BwdParams& p, int t, int b, int 
 
 // ---------------------------------------------------------------------------
 // K4a: one block = NW warps x 16 query rows of one (batch, head); loops over
-// key tiles of BK.
+// key tiles of BK.  DC: width of the dQ chunk held in registers (DC < DP
+// keeps dQ in per-thread shared-memory slots between key tiles).
 // ---------------------------------------------------------------------------
-template <int DP, int NW, int BK>
+template <int DP, int NW, int BK, int DC>
 __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int BQ = 16 * NW;
   constexpr int LD = DP + 8;
   constexpr int NT_S = BK / 8;
-  constexpr int NT_D = DP / 8;
+  constexpr int NT_D = DC / 8;
+  constexpr int NCHUNK = DP / DC;
+  constexpr bool ACC_SMEM = NCHUNK > 1;
   constexpr int KSTEPS = BK / 16;
   constexpr int NTHREADS = NW * 32;
 
@@ -75,6 +87,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_kernel(const BwdParams p
   __nv_bfloat16* ks = dos + BQ * LD;
   __nv_bfloat16* vs = ks + BK * LD;
   float* rowd = reinterpret_cast<float*>(vs + BK * LD);  // D of the block's rows
+  float* accs = rowd + BQ;  // dQ slots, used when ACC_SMEM
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -134,10 +147,10 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_kernel(const BwdParams p
   const float dr[2] = {rowd[r0], rowd[r1]};
 
   float dq_acc[NT_D][4];
-#pragma unroll
-  for (int dt = 0; dt < NT_D; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.f;
+  zero_acc(dq_acc);
+  float* slots = accs + (size_t)warp * NCHUNK * NT_D * 128;
+  if constexpr (ACC_SMEM) {
+    for (int c = 0; c < NCHUNK; ++c) store_slots(slots, c, lane, dq_acc);
   }
 
   for (int k0 = 0; k0 < p.sk; k0 += BK) {
@@ -183,45 +196,54 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_kernel(const BwdParams p
 #pragma unroll
     for (int j = 0; j < KSTEPS; ++j) acc_to_a(da[j], s[2 * j], s[2 * j + 1]);
 
-    // dQ += dS (16 x BK) . K (BK x DP)
+    // dQ += dS (16 x BK) . K (BK x DP), chunk by chunk
+    for (int c = 0; c < NCHUNK; ++c) {
+      if constexpr (ACC_SMEM) load_slots(dq_acc, slots, c, lane);
 #pragma unroll
-    for (int j = 0; j < KSTEPS; ++j) {
+      for (int j = 0; j < KSTEPS; ++j) {
 #pragma unroll
-      for (int dt = 0; dt < NT_D; ++dt) {
-        uint32_t bb[2];
-        load_b_cols<LD>(bb, ks, j * 16, dt * 8, g, t4);
-        mma_16816(dq_acc[dt], da[j], bb);
+        for (int dt = 0; dt < NT_D; ++dt) {
+          uint32_t bb[2];
+          load_b_cols<LD>(bb, ks, j * 16, c * DC + dt * 8, g, t4);
+          mma_16816(dq_acc[dt], da[j], bb);
+        }
       }
+      if constexpr (ACC_SMEM) store_slots(slots, c, lane, dq_acc);
     }
     __syncthreads();  // the next tile overwrites ks / vs
   }
 
   const int row0 = q0 + r0;
   const int row1 = q0 + r1;
+  for (int c = 0; c < NCHUNK; ++c) {
+    if constexpr (ACC_SMEM) load_slots(dq_acc, slots, c, lane);
 #pragma unroll
-  for (int dt = 0; dt < NT_D; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (col < p.d) {
-      if (row0 < p.sq)
-        *reinterpret_cast<uint32_t*>(dqg + (long long)row0 * p.st[DQ][2] + col) =
-            pack_f32(dq_acc[dt][0] * p.scale, dq_acc[dt][1] * p.scale);
-      if (row1 < p.sq)
-        *reinterpret_cast<uint32_t*>(dqg + (long long)row1 * p.st[DQ][2] + col) =
-            pack_f32(dq_acc[dt][2] * p.scale, dq_acc[dt][3] * p.scale);
+    for (int dt = 0; dt < NT_D; ++dt) {
+      const int col = c * DC + dt * 8 + t4 * 2;
+      if (col < p.d) {
+        if (row0 < p.sq)
+          *reinterpret_cast<uint32_t*>(dqg + (long long)row0 * p.st[DQ][2] + col) =
+              pack_f32(dq_acc[dt][0] * p.scale, dq_acc[dt][1] * p.scale);
+        if (row1 < p.sq)
+          *reinterpret_cast<uint32_t*>(dqg + (long long)row1 * p.st[DQ][2] + col) =
+              pack_f32(dq_acc[dt][2] * p.scale, dq_acc[dt][3] * p.scale);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 // K4b: one block = NW warps x 16 key rows of one (batch, head); loops over
-// query tiles of BQ.
+// query tiles of BQ.  DC as in K4a, for dK and dV.
 // ---------------------------------------------------------------------------
-template <int DP, int NW, int BQ>
+template <int DP, int NW, int BQ, int DC>
 __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_kernel(const BwdParams p) {
   constexpr int BKB = 16 * NW;
   constexpr int LD = DP + 8;
   constexpr int NT_S = BQ / 8;
-  constexpr int NT_D = DP / 8;
+  constexpr int NT_D = DC / 8;
+  constexpr int NCHUNK = DP / DC;
+  constexpr bool ACC_SMEM = NCHUNK > 1;
   constexpr int QSTEPS = BQ / 16;
   constexpr int NTHREADS = NW * 32;
 
@@ -232,6 +254,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_kernel(const BwdParams 
   __nv_bfloat16* dos = qs + BQ * LD;
   float* l2s = reinterpret_cast<float*>(dos + BQ * LD);  // L * log2 e per query
   float* ds_ = l2s + BQ;                                  // D per query
+  float* accs = ds_ + BQ;  // dK, dV slots, used when ACC_SMEM
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -257,10 +280,15 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_kernel(const BwdParams 
   load_tile<DP, LD, BKB, NTHREADS>(vs, vg, p.st[V][2], k0, p.sk, p.d, tid);
 
   float dk_acc[NT_D][4], dv_acc[NT_D][4];
-#pragma unroll
-  for (int dt = 0; dt < NT_D; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+  zero_acc(dk_acc);
+  zero_acc(dv_acc);
+  float* dk_slots = accs + (size_t)warp * 2 * NCHUNK * NT_D * 128;
+  float* dv_slots = dk_slots + NCHUNK * NT_D * 128;
+  if constexpr (ACC_SMEM) {
+    for (int c = 0; c < NCHUNK; ++c) {
+      store_slots(dk_slots, c, lane, dk_acc);
+      store_slots(dv_slots, c, lane, dv_acc);
+    }
   }
 
   for (int q0 = 0; q0 < p.sq; q0 += BQ) {
@@ -314,16 +342,26 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_kernel(const BwdParams 
       acc_to_a(dsa[j], dpt[2 * j], dpt[2 * j + 1]);
     }
 
-    // dV += P^T . dO and dK += dS^T . Q (16 keys x DP)
+    // dV += P^T . dO and dK += dS^T . Q (16 keys x DP), chunk by chunk
+    for (int c = 0; c < NCHUNK; ++c) {
+      if constexpr (ACC_SMEM) {
+        load_slots(dk_acc, dk_slots, c, lane);
+        load_slots(dv_acc, dv_slots, c, lane);
+      }
 #pragma unroll
-    for (int j = 0; j < QSTEPS; ++j) {
+      for (int j = 0; j < QSTEPS; ++j) {
 #pragma unroll
-      for (int dt = 0; dt < NT_D; ++dt) {
-        uint32_t bdo[2], bq[2];
-        load_b_cols<LD>(bdo, dos, j * 16, dt * 8, g, t4);
-        load_b_cols<LD>(bq, qs, j * 16, dt * 8, g, t4);
-        mma_16816(dv_acc[dt], pa[j], bdo);
-        mma_16816(dk_acc[dt], dsa[j], bq);
+        for (int dt = 0; dt < NT_D; ++dt) {
+          uint32_t bdo[2], bq[2];
+          load_b_cols<LD>(bdo, dos, j * 16, c * DC + dt * 8, g, t4);
+          load_b_cols<LD>(bq, qs, j * 16, c * DC + dt * 8, g, t4);
+          mma_16816(dv_acc[dt], pa[j], bdo);
+          mma_16816(dk_acc[dt], dsa[j], bq);
+        }
+      }
+      if constexpr (ACC_SMEM) {
+        store_slots(dk_slots, c, lane, dk_acc);
+        store_slots(dv_slots, c, lane, dv_acc);
       }
     }
     __syncthreads();  // the next tile overwrites qs / dos / l2s / ds_
@@ -331,21 +369,27 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_kernel(const BwdParams 
 
   const int row0 = k0 + wrow + g;
   const int row1 = row0 + 8;
+  for (int c = 0; c < NCHUNK; ++c) {
+    if constexpr (ACC_SMEM) {
+      load_slots(dk_acc, dk_slots, c, lane);
+      load_slots(dv_acc, dv_slots, c, lane);
+    }
 #pragma unroll
-  for (int dt = 0; dt < NT_D; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (col < p.d) {
-      if (row0 < p.sk) {
-        *reinterpret_cast<uint32_t*>(dkg + (long long)row0 * p.st[DK][2] + col) =
-            pack_f32(dk_acc[dt][0] * p.scale, dk_acc[dt][1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvg + (long long)row0 * p.st[DV][2] + col) =
-            pack_f32(dv_acc[dt][0], dv_acc[dt][1]);
-      }
-      if (row1 < p.sk) {
-        *reinterpret_cast<uint32_t*>(dkg + (long long)row1 * p.st[DK][2] + col) =
-            pack_f32(dk_acc[dt][2] * p.scale, dk_acc[dt][3] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvg + (long long)row1 * p.st[DV][2] + col) =
-            pack_f32(dv_acc[dt][2], dv_acc[dt][3]);
+    for (int dt = 0; dt < NT_D; ++dt) {
+      const int col = c * DC + dt * 8 + t4 * 2;
+      if (col < p.d) {
+        if (row0 < p.sk) {
+          *reinterpret_cast<uint32_t*>(dkg + (long long)row0 * p.st[DK][2] + col) =
+              pack_f32(dk_acc[dt][0] * p.scale, dk_acc[dt][1] * p.scale);
+          *reinterpret_cast<uint32_t*>(dvg + (long long)row0 * p.st[DV][2] + col) =
+              pack_f32(dv_acc[dt][0], dv_acc[dt][1]);
+        }
+        if (row1 < p.sk) {
+          *reinterpret_cast<uint32_t*>(dkg + (long long)row1 * p.st[DK][2] + col) =
+              pack_f32(dk_acc[dt][2] * p.scale, dk_acc[dt][3] * p.scale);
+          *reinterpret_cast<uint32_t*>(dvg + (long long)row1 * p.st[DV][2] + col) =
+              pack_f32(dv_acc[dt][2], dv_acc[dt][3]);
+        }
       }
     }
   }
@@ -362,28 +406,33 @@ int launch(Kern kern, size_t smem, dim3 grid, int threads, const BwdParams& p,
   return (int)cudaGetLastError();
 }
 
-template <int DP, int NW, int BK>
+// DC defaults to DP: the whole accumulator row in registers
+template <int DP, int NW, int BK, int DC = DP>
 int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr int BQ = 16 * NW;
-  const size_t smem = (size_t)(2 * BQ + 2 * BK) * (DP + 8) * sizeof(__nv_bfloat16) +
-                      BQ * sizeof(float);
+  constexpr size_t smem = (size_t)(2 * BQ + 2 * BK) * (DP + 8) * sizeof(__nv_bfloat16) +
+                          BQ * sizeof(float) +
+                          (DP > DC ? (size_t)BQ * DP * sizeof(float) : 0);
+  static_assert(smem <= 232448, "tile does not fit a block's shared memory");
   const dim3 grid((p.sq + BQ - 1) / BQ, batch * p.heads);
-  return launch(flash_bwd_dq_kernel<DP, NW, BK>, smem, grid, NW * 32, p, stream);
+  return launch(flash_bwd_dq_kernel<DP, NW, BK, DC>, smem, grid, NW * 32, p, stream);
 }
 
-template <int DP, int NW, int BQ>
+template <int DP, int NW, int BQ, int DC = DP>
 int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr int BKB = 16 * NW;
-  const size_t smem = (size_t)(2 * BKB + 2 * BQ) * (DP + 8) * sizeof(__nv_bfloat16) +
-                      2 * BQ * sizeof(float);
+  constexpr size_t smem = (size_t)(2 * BKB + 2 * BQ) * (DP + 8) * sizeof(__nv_bfloat16) +
+                          2 * BQ * sizeof(float) +
+                          (DP > DC ? (size_t)2 * BKB * DP * sizeof(float) : 0);
+  static_assert(smem <= 232448, "tile does not fit a block's shared memory");
   const dim3 grid((p.sk + BKB - 1) / BKB, batch * p.heads);
-  return launch(flash_bwd_dkv_kernel<DP, NW, BQ>, smem, grid, NW * 32, p, stream);
+  return launch(flash_bwd_dkv_kernel<DP, NW, BQ, DC>, smem, grid, NW * 32, p, stream);
 }
 
 int make_params(BwdParams& p, const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* dvec, void* dq, void* dk, void* dv,
                 int heads, int sq, int sk, int d, const long long* strides, float scale) {
-  if (d <= 0 || d % 8 != 0 || d > 128 || sq <= 0 || sk <= 0 || heads <= 0)
+  if (d <= 0 || d % 8 != 0 || d > 512 || sq <= 0 || sk <= 0 || heads <= 0)
     return (int)cudaErrorInvalidValue;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -436,8 +485,10 @@ extern "C" int eti_flash_attention_bwd_dq(
     case 96: return launch_dq<96, 4, 32>(p, batch, st);
     case 112: return launch_dq<112, 4, 32>(p, batch, st);
     case 128: return launch_dq<128, 4, 32>(p, batch, st);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if (d <= 256) return launch_dq<256, 2, 32, 64>(p, batch, st);
+  return launch_dq<512, 2, 32, 64>(p, batch, st);
 }
 
 // K4b: dK and dV, reading the D that K4a wrote.
@@ -459,6 +510,8 @@ extern "C" int eti_flash_attention_bwd_dkv(
     case 96: return launch_dkv<96, 4, 32>(p, batch, st);
     case 112: return launch_dkv<112, 4, 32>(p, batch, st);
     case 128: return launch_dkv<128, 4, 32>(p, batch, st);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if (d <= 256) return launch_dkv<256, 2, 32, 64>(p, batch, st);
+  return launch_dkv<512, 2, 16, 64>(p, batch, st);
 }

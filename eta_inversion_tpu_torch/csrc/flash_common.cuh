@@ -1,8 +1,10 @@
 // Helpers shared by the port's kernels (flash_attention.cu,
-// flash_attention_bwd.cu, crossk_attention.cu, geglu.cu): the bf16
-// tensor-core product mma.sync m16n8k16 with fp32 accumulation, its fragment
-// loads from shared memory and from accumulators, and a zero-padded row load
-// into shared memory.
+// flash_attention_bwd.cu, flash_multihead.cu, crossk_attention.cu, geglu.cu):
+// the bf16 tensor-core product mma.sync m16n8k16 with fp32 accumulation (and
+// the TF32 m16n8k8), its
+// fragment loads from shared memory and from accumulators, the online-softmax
+// step, accumulator slots in shared memory, and a zero-padded row load into
+// shared memory.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t4..2t4+1), a1 = (g+8, 2t4..),
@@ -11,6 +13,13 @@
 //   C (16 x 8):             c0,c1 = (g, 2t4..2t4+1), c2,c3 = (g+8, 2t4..)
 // so the accumulators of two neighbouring n8 tiles are, packed to bf16, the
 // A fragment of one 16-deep step.
+//
+// The fp32-operand (TF32) product mma.sync m16n8k8 of the microbenchmarks'
+// kernels has its own fragments (registers hold fp32 bit patterns):
+//   A (16 x 8):  a0 = (g, t4), a1 = (g+8, t4), a2 = (g, t4+4), a3 = (g+8, t4+4)
+//   B (8 x 8):   b0 = (k t4, n g), b1 = (k t4+4, n g)
+//   C:           as m16n8k16's
+// so an accumulator is not an A fragment: acc_to_a_tf32 moves it by shuffles.
 
 #pragma once
 
@@ -23,6 +32,9 @@ namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// what a C entry point returns for arguments it has no instance for (a head
+// dim, tile, operand mode or budget it does not take); else a cudaError_t
+constexpr int kUnsupported = -1;
 
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
                                           const uint32_t (&b)[2]) {
@@ -31,6 +43,45 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ float round_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ uint32_t fbits(float x) { return __float_as_uint(x); }
+
+// a bf16 value as a TF32 operand (exact: bf16 is TF32 with fewer mantissa bits)
+__device__ __forceinline__ uint32_t tf32_bits(__nv_bfloat16 x) {
+  return fbits(__bfloat162float(x));
+}
+
+// TF32 A fragment (16 x 8) of one n8 accumulator tile, rounded with cvt.rna:
+// column c of row g sits in lane 4g + c/2, element c%2 (2 + c%2 for row g+8)
+__device__ __forceinline__ void acc_to_a_tf32(uint32_t (&a)[4], const float (&acc)[4],
+                                              int lane) {
+  const int src = (lane & ~3) | ((lane & 3) >> 1);  // holds column t4; src + 2: t4 + 4
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float x0 = __shfl_sync(0xffffffffu, acc[0], src + 2 * half);
+    const float x1 = __shfl_sync(0xffffffffu, acc[1], src + 2 * half);
+    const float y0 = __shfl_sync(0xffffffffu, acc[2], src + 2 * half);
+    const float y1 = __shfl_sync(0xffffffffu, acc[3], src + 2 * half);
+    a[2 * half] = fbits(round_tf32(odd ? x1 : x0));
+    a[2 * half + 1] = fbits(round_tf32(odd ? y1 : y0));
+  }
 }
 
 // two floats -> bf16x2, `lo` in the low half (the smaller column index)
@@ -86,6 +137,125 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[2], const __nv_bfloat1
   const __nv_bfloat16* y = tile + (k + t4 * 2) * LD + n + g;
   b[0] = pack_bf16(y[0], y[LD]);
   b[1] = pack_bf16(y[8 * LD], y[9 * LD]);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+}
+
+// Per-thread shared-memory slots of accumulator fragments, for accumulators
+// too wide for registers: chunk c of a warp's NT n8 tiles sits at
+// slots[((c * NT + tile) * 32 + lane) * 4 ..], one float4 per tile, so a
+// thread only ever touches its own slots (no synchronisation needed).
+template <int NT>
+__device__ __forceinline__ void store_slots(float* slots, int c, int lane,
+                                            const float (&acc)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+    *reinterpret_cast<float4*>(slots + ((c * NT + i) * 32 + lane) * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+template <int NT>
+__device__ __forceinline__ void load_slots(float (&acc)[NT][4], const float* slots, int c,
+                                           int lane) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const float4 t = *reinterpret_cast<const float4*>(slots + ((c * NT + i) * 32 + lane) * 4);
+    acc[i][0] = t.x; acc[i][1] = t.y; acc[i][2] = t.z; acc[i][3] = t.w;
+  }
+}
+
+// One online-softmax step over a warp's 16 x (8 NT) score slab in the
+// accumulator layout (rows g and g + 8, keys k0 + 8 nt + 2 t4 + {0, 1}):
+// scales the raw scores by scale_log2 (scale * log2 e), masks keys >= sk,
+// updates the running row max m_r and this thread's share of the row sums l_r
+// (log2 domain, l_r already rescaled), and leaves exp2(score - max) in s.
+// alpha is the factor by which the caller rescales its output accumulators.
+template <int NT>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4], int k0, int sk,
+                                               float scale_log2, int t4, float (&m_r)[2],
+                                               float (&l_r)[2], float (&alpha)[2]) {
+  const float kNegInf = -INFINITY;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + nt * 8 + t4 * 2 + (e & 1);
+      const float x = key < sk ? s[nt][e] * scale_log2 : kNegInf;
+      s[nt][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_r[r], mx[r]);
+    alpha[r] = m_r[r] == kNegInf ? 0.f : exp2f(m_r[r] - m_new);
+    m_r[r] = m_new;
+    l_r[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = exp2f(s[nt][e] - m_r[e >> 1]);
+      s[nt][e] = pe;
+      l_r[e >> 1] += pe;
+    }
+  }
+}
+
+// Rows g (elements 0, 1) and g + 8 (2, 3) of accumulator tiles times
+// alpha[0], alpha[1]: the online softmax's rescale of the output
+template <int NT>
+__device__ __forceinline__ void scale_rows(float (&acc)[NT][4], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    acc[i][0] *= alpha[0];
+    acc[i][1] *= alpha[0];
+    acc[i][2] *= alpha[1];
+    acc[i][3] *= alpha[1];
+  }
+}
+
+// The whole row sums (rows g, g + 8) from the four threads that share each
+// row, and their inverses
+__device__ __forceinline__ void row_sums(float (&l_r)[2], float (&inv_l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    inv_l[r] = 1.f / l_r[r];
+  }
+}
+
+// acc * inv_l as bf16 to columns [c0, c0 + 8 NT) below d of rows row0 and
+// row0 + 8 (the thread's rows g, g + 8) of o (row stride ss); rows >= sq
+// are skipped
+template <int NT>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* o, long long ss, int row0, int sq,
+                                           int c0, int d, int t4, const float (&acc)[NT][4],
+                                           const float (&inv_l)[2]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int col = c0 + i * 8 + t4 * 2;
+    if (col < d) {
+      if (row0 < sq)
+        *reinterpret_cast<uint32_t*>(o + (long long)row0 * ss + col) =
+            pack_f32(acc[i][0] * inv_l[0], acc[i][1] * inv_l[0]);
+      if (row0 + 8 < sq)
+        *reinterpret_cast<uint32_t*>(o + (long long)(row0 + 8) * ss + col) =
+            pack_f32(acc[i][2] * inv_l[1], acc[i][3] * inv_l[1]);
+    }
+  }
 }
 
 // Copy rows [row0, row0 + rows) x cols [0, DP) of a (nrows, d) slab into

@@ -11,8 +11,9 @@ points' names and signatures:
   * ``flash_attention_bhsd``, block_k <  S  flat (BH, S, D), blockwise (K3)
 
 The two Pallas backward kernels are two CUDA kernels
-(csrc/flash_attention_bwd.cu) behind ``flash_attention_bwd_dq`` (K4a) and
-``flash_attention_bwd_dkv`` (K4b).  When autograd needs a gradient through a
+(csrc/flash_attention_bwd.cu, head dims up to 512) behind
+``flash_attention_bwd_dq`` (K4a) and ``flash_attention_bwd_dkv`` (K4b).
+When autograd needs a gradient through a
 forward wrapper on the card, the wrapper goes through `_FlashAttention` (the
 counterpart of the JAX ``custom_vjp``s ``_flash`` / ``_flash_packed``): its
 forward also writes the row logsumexp and saves q, k, v, o and that LSE, and
@@ -30,6 +31,15 @@ The short-K cross-attention kernel (K5) is csrc/crossk_attention.cu behind
 callers with flat (BH, Sq, D) layouts, as in JAX.  It also stands for K5's
 Pallas prototype S2 (``cross_shortk`` in scripts/attn_microbench3.py), which
 passes K/V already padded to 128 rows.
+
+The other Pallas prototypes are reached only by the attention
+microbenchmarks (eta_inversion_tpu_torch/microbench), never by a served path:
+``flash_attention_bhsd_tiled`` runs K3's kernel with a chosen tile and, for
+the fp32-operand products of S1 (``flash`` in scripts/flash_sweep.py) and S3
+(``prod_flash`` in scripts/attn_multihead_bench.py), on the TF32 tensor
+cores; ``flash_attention_multihead`` is S4 (``v8_multihead`` there), one
+block per (batch, q tile) for all heads (csrc/flash_multihead.cu), with bf16
+or, as the prototype, fp32 (TF32) operands.
 
 The dispatchers `attention` / `attention_packed` gate on device and shape, as
 the JAX ones do: long self-attention on the card goes to the wrappers (which
@@ -56,6 +66,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_bwd_dq": 0,
     "flash_attention_bwd_dkv": 0,
     "crossk_attention": 0,
+    "flash_attention_bhsd_tiled": 0,
+    "flash_attention_bhsd_tf32": 0,
+    "flash_attention_multihead": 0,
+    "flash_attention_multihead_tf32": 0,
 }
 
 
@@ -73,20 +87,21 @@ _i32 = ctypes.c_int
 _i64 = ctypes.c_longlong
 _LIBS = (("eti_flash_attention", ("flash_attention.cu",)),
          ("eti_flash_attention_bwd", ("flash_attention_bwd.cu",)),
-         ("eti_crossk_attention", ("crossk_attention.cu",)))
-_loaded: Optional[Tuple[ctypes.CDLL, ctypes.CDLL, ctypes.CDLL]] = None
+         ("eti_crossk_attention", ("crossk_attention.cu",)),
+         ("eti_flash_multihead", ("flash_multihead.cu",)))
+_loaded: Optional[Tuple[ctypes.CDLL, ...]] = None
 
 
-def build_kernels() -> Tuple[ctypes.CDLL, ctypes.CDLL, ctypes.CDLL]:
+def build_kernels() -> Tuple[ctypes.CDLL, ...]:
     """Build (at first use, one nvcc per source, side by side) and load the
-    forward, backward and short-K attention kernel libraries."""
+    forward, backward, short-K and multi-head attention kernel libraries."""
     global _loaded
     if _loaded is None:
         from .cuda_build import load_libraries
 
-        fwd, bwd, crossk = load_libraries(_LIBS)
+        fwd, bwd, crossk, multihead = load_libraries(_LIBS)
         fn = fwd.eti_flash_attention_fwd
-        fn.argtypes = [_ptr] * 5 + [_i32] * 5 + [_i64] * 14 + [ctypes.c_float, _ptr]
+        fn.argtypes = [_ptr] * 5 + [_i32] * 8 + [_i64] * 14 + [ctypes.c_float, _ptr]
         fn.restype = _i32
         for fn in (bwd.eti_flash_attention_bwd_dq, bwd.eti_flash_attention_bwd_dkv):
             fn.argtypes = [_ptr] * 8 + [_i32] * 5 + [ctypes.POINTER(_i64), ctypes.c_float,
@@ -95,16 +110,31 @@ def build_kernels() -> Tuple[ctypes.CDLL, ctypes.CDLL, ctypes.CDLL]:
         fn = crossk.eti_crossk_attention
         fn.argtypes = [_ptr] * 4 + [_i32] * 4 + [_i64] * 8 + [ctypes.c_float, _ptr]
         fn.restype = _i32
-        _loaded = fwd, bwd, crossk
+        fn = multihead.eti_flash_multihead
+        fn.argtypes = [_ptr] * 4 + [_i32] * 8 + [_i64] * 8 + [ctypes.c_float, _ptr]
+        fn.restype = _i32
+        _loaded = fwd, bwd, crossk, multihead
     return _loaded
 
 
 # The kernels' own limits (csrc/flash_attention*.cu): bf16, head dim a
-# multiple of 8 up to 512 forward (d > 128 keeps the output row in shared
-# memory; the d=512 tile set takes 165 KB of the block's 227 KB) and up to
-# 128 backward.
+# multiple of 8 up to 512 forward and backward (d > 128 keeps the output, or
+# the dQ / dK + dV rows, in shared memory; the d=512 tile sets take 165 KB
+# forward, 194 KB for dQ and 226 KB for dK + dV of the block's 227 KB).  The
+# microbenchmarks' tiles, TF32 mode and multi-head kernel exist only where
+# the microbenchmarks run them; their C entry points say which arguments
+# they take (UNSUPPORTED otherwise).
 KERNEL_MAX_HEAD_DIM = 512
-BWD_MAX_HEAD_DIM = 128
+# an entry point's return for arguments it has no instance for (kUnsupported
+# in csrc/flash_common.cuh); any other nonzero return is a cudaError_t
+UNSUPPORTED = -1
+
+
+def _launched(err: int, what: str, args: str) -> None:
+    if err == UNSUPPORTED:
+        raise ValueError(f"{what}: the kernel does not take {args}")
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def _check_head_dim(d: int, most: int = KERNEL_MAX_HEAD_DIM) -> None:
@@ -155,18 +185,26 @@ def _check_grid(batch: int, heads: int, sq: int, sk: int) -> None:
         raise ValueError(f"batch*heads {batch * heads} exceeds the grid limit")
 
 
-def _fwd_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool):
-    """Launch the forward kernel; returns (o, lse or None), lse fp32 (B, H, S)
-    packed or (BH, 1, S) flat, the JAX layouts."""
-    batch, h, d = _layout(q, heads)
-    _check_head_dim(d)
+def _check_qkv(q, k, v, heads: Optional[int]) -> None:
+    """The forward kernels' operand checks: bf16 CUDA q, k, v of matching
+    shapes on one device."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, 3)
-    if k.shape != v.shape or k.shape[0] != batch or k.shape[2] != q.shape[2]:
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} heads={heads}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v on different devices")
+
+
+def _fwd_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool,
+                tf32: bool = False, tile: Optional[Tuple[int, int]] = None):
+    """Launch the forward kernel; returns (o, lse or None), lse fp32 (B, H, S)
+    packed or (BH, 1, S) flat, the JAX layouts.  `tf32` (no LSE) and `tile`
+    where the kernel has an instance for them (ValueError otherwise)."""
+    batch, h, d = _layout(q, heads)
+    _check_head_dim(d)
+    _check_qkv(q, k, v, heads)
     sq, sk = q.shape[1], k.shape[1]
     _check_grid(batch, h, sq, sk)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -180,10 +218,10 @@ def _fwd_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool):
     err = lib.eti_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        batch, h, sq, sk, d, *flat, *lse_st, float(scale),
+        batch, h, sq, sk, d, int(tf32), *(tile or (0, 0)), *flat, *lse_st, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
+    _launched(err, "flash attention kernel",
+              f"head dim {d} with tile {tile} and {'TF32' if tf32 else 'bf16'} operands")
     return o, lse
 
 
@@ -270,12 +308,16 @@ def _needs_grad(*xs) -> bool:
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX custom_vjp `_flash` (heads None: flat) and
     `_flash_packed` (packed): the forward writes the LSE and saves
-    (q, k, v, o, lse); the backward launches K4a and K4b."""
+    (q, k, v, o, lse); the backward launches K4a and K4b.  On CPU tensors
+    both take the plain versions (the wrappers' CPU branch itself lets
+    autograd differentiate the plain forward instead)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, heads: Optional[int], counter: str):
-        o, lse = _fwd_launch(q, k, v, scale, heads, need_lse=True)
-        LAUNCHES[counter] += 1
+    def forward(ctx, q, k, v, scale: float, heads: Optional[int], block_k: int):
+        if heads is None:
+            o, lse = flash_attention_bhsd_fwd(q, k, v, scale, block_k, need_lse=True)
+        else:
+            o, lse = flash_attention_packed_fwd(q, k, v, scale, heads, need_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.heads = scale, heads
         return o
@@ -327,8 +369,7 @@ def flash_attention_bhsd(q, k, v, scale: float, block_q: int = 512,
     on Hopper both launch the same CUDA kernel, and block_q is ignored.
     Differentiable: on the card through K4a / K4b."""
     if q.device.type != "cpu" and _needs_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, float(scale), None,
-                                     _bhsd_counter(block_k, k.shape[1]))
+        return _FlashAttention.apply(q, k, v, float(scale), None, block_k)
     return flash_attention_bhsd_fwd(q, k, v, scale, block_k)[0]
 
 
@@ -339,14 +380,73 @@ def flash_attention_packed(q, k, v, scale: float, heads: int,
     block_q / block_k are ignored (kept for the JAX signature).
     Differentiable: on the card through K4a / K4b, in the packed layout."""
     if q.device.type != "cpu" and _needs_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, float(scale), heads, "flash_attention_packed")
+        return _FlashAttention.apply(q, k, v, float(scale), heads, block_k)
     return flash_attention_packed_fwd(q, k, v, scale, heads)[0]
+
+
+def flash_attention_bhsd_tiled(q, k, v, scale: float, operands: str = "bf16",
+                               tile: Optional[Tuple[int, int]] = None):
+    """K3's function over flat (BH, S, D) with the card tile chosen: `tile`
+    is (warps of 16 query rows, keys per tile), (4, 64), (2, 64) or (4,
+    128); None for the default.  operands "bf16" is K3's kernel (bf16
+    tensor-core products); "fp32" contracts fp32 Q, K, P and V on the TF32
+    tensor cores, the products of the Pallas prototypes S1 (mm_bf16=False)
+    and S3.  For the attention microbenchmarks (counted apart from K2 / K3:
+    no served path launches it); no gradient.  On the card it takes bf16,
+    and a chosen tile or fp32 operands only at the microbenchmarks' head
+    dims (40 native and padded to 128: d of 33-48 or 113-128); it raises
+    otherwise.  A CPU tensor takes the plain version (fp32 einsums)."""
+    if operands not in ("bf16", "fp32"):
+        raise ValueError(f"operands {operands!r}: 'bf16' or 'fp32'")
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_plain(q, k, v, scale)
+    o, _ = _fwd_launch(q, k, v, scale, None, need_lse=False, tf32=operands == "fp32",
+                       tile=tile)
+    LAUNCHES["flash_attention_bhsd_tf32" if operands == "fp32"
+             else "flash_attention_bhsd_tiled"] += 1
+    return o
+
+
+def flash_attention_multihead(q, k, v, scale: float, heads: int, operands: str = "bf16",
+                              tile: Optional[Tuple[int, int]] = None):
+    """K1's function over packed (B, S, H*D) inputs, as the Pallas prototype
+    S4 computes it: one block per (batch, q tile) walks all heads, K / V
+    tiles staged once for every head.  operands "bf16" are K1's products,
+    "fp32" the prototype's own (TF32 tensor cores).  `tile` is (warps per
+    head, keys per staged tile), (2, 64), (1, 64), (2, 32) or (2, 96); None
+    for (2, 64).  For the attention microbenchmarks (no served path launches
+    it); no gradient.  On the card it takes bf16, the microbenchmarks' head
+    dim (d of 33-48: SD's 40), and as many heads as its 512 threads and
+    shared memory hold, and raises otherwise; a CPU tensor takes the plain
+    version."""
+    if operands not in ("bf16", "fp32"):
+        raise ValueError(f"operands {operands!r}: 'bf16' or 'fp32'")
+    if q.device.type == "cpu":
+        return flash_attention_packed_plain(q, k, v, scale, heads)
+    batch, h, d = _layout(q, heads)
+    _check_head_dim(d)
+    _check_qkv(q, k, v, heads)
+    sq, sk = q.shape[1], k.shape[1]
+    _check_grid(batch, 1, sq, sk)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = build_kernels()[3]
+    err = lib.eti_flash_multihead(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), batch, h, sq, sk, d,
+        int(operands == "fp32"), *(tile or (0, 0)),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        o.stride(0), o.stride(1), float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _launched(err, "multi-head attention kernel",
+              f"{h} heads of d={d} with tile {tile} and {operands} operands "
+              "(threads, shared memory or head dim)")
+    LAUNCHES["flash_attention_multihead_tf32" if operands == "fp32"
+             else "flash_attention_multihead"] += 1
+    return o
 
 
 def _bwd_prepare(q, k, v, lse, do, heads: Optional[int]):
     """Checks shared by K4a and K4b; returns (batch, heads, d, sq, sk)."""
     batch, h, d = _layout(q, heads)
-    _check_head_dim(d, BWD_MAX_HEAD_DIM)
+    _check_head_dim(d)
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_operand(name, x, 3)
     if k.shape != v.shape or do.shape != q.shape or k.shape[0] != batch \

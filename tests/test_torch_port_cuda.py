@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 forward kernel (K1-K3) with its LSE, the backward kernels (K4a dQ, K4b
-dK/dV), autograd through the dispatchers, the short-K cross-attention kernel
-(K5) and the fused GEGLU kernel (K6) with its autograd.Function.
+dK/dV, head dims up to 512), autograd through the dispatchers, the short-K
+cross-attention kernel (K5), the fused GEGLU kernel (K6) with its
+autograd.Function, and the microbenchmarks' kernels: the tiled / TF32 flat
+kernel (S1, S3) and the multi-head kernel (S4).
 
 Marked `cuda`; each test skips without a card (a CUDA kernel has no CPU
 mode).  Imports neither JAX nor tests/conftest.py's fixtures, so it runs on a
@@ -195,15 +197,155 @@ def test_cuda_autograd_matches_plain_autograd(packed, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_backward_refuses_head_dims_above_128():
+    """The backward's limit is now the forward's, 512 (it was 128): a head
+    dim above it raises in the backward wrappers and in a differentiable
+    forward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    q, k, v, o, lse, do, scale = _bwd_inputs("flat", 1, 256, 1, 256, seed=5)
-    with pytest.raises(ValueError, match="up to 128"):
+    q, k, v, o, lse, do, scale = _bwd_inputs("flat", 1, 256, 1, 520, seed=5)
+    with pytest.raises(ValueError, match="up to 512"):
         tfa.flash_attention_bwd(q, k, v, o, lse, do, scale)
     x = q.clone().requires_grad_(True)
-    o = tfa.flash_attention_bhsd(x, k, v, scale)
-    with pytest.raises(ValueError, match="up to 128"):
-        o.float().sum().backward()
+    with pytest.raises(ValueError, match="up to 512"):
+        tfa.flash_attention_bhsd(x, k, v, scale).float().sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d", [
+    (1, 4096, 512), (2, 1024, 512),  # the VAE mid-block attention at 512 / 256 px
+    (2, 300, 256),                   # ragged S, head dim padded to 256
+    (1, 200, 136),                   # the smallest head dim above 128
+])
+def test_cuda_wide_backward_kernels_match_plain(b, s, d):
+    """K4a / K4b above head dim 128 (dQ, dK + dV kept in shared-memory slots)
+    against the plain backward; the bound of the narrow heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, o, lse, do, scale = _bwd_inputs("flat", b, s, 1, d, seed=13)
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bwd_dq"] == tfa.LAUNCHES["flash_attention_bwd_dkv"] == 1
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= RTOL * w.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_cuda_vae_attention_gradient_goes_through_the_wide_backward(monkeypatch):
+    """A gradient through the VAE mid-block attention (512 channels, one
+    head, 32x32 tokens) on the card: the blockwise forward with its LSE, then
+    K4a / K4b at d = 512, within 1% (relative L2) of the plain path's for the
+    input and the q / k / v projections."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from eta_inversion_tpu_torch.models.vae import VAEAttention
+
+    torch.manual_seed(0)
+    mod = VAEAttention(512).cuda().to(torch.bfloat16)
+    x = torch.randn(1, 512, 32, 32, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1)).bfloat16()
+
+    def grads():
+        mod.zero_grad()
+        xg = x.clone().requires_grad_(True)
+        torch.sin(mod(xg).float()).sum().backward()
+        return [xg.grad.float()] + [getattr(mod, n).weight.grad.float()
+                                    for n in ("to_q", "to_k", "to_v")]
+
+    tfa.reset_launch_counts()
+    got = grads()
+    assert tfa.LAUNCHES["flash_attention_bwd_dq"] == tfa.LAUNCHES["flash_attention_bwd_dkv"] == 1
+    monkeypatch.setattr(tfa, "_kernel_eligible", lambda *a, **k: False)
+    for g, w, name in zip(got, grads(), ("x", "to_q", "to_k", "to_v")):
+        assert (g - w).norm().item() <= 1e-2 * w.norm().item(), name
+
+
+def _mean_err(got, want):
+    return (got.float() - want.float()).abs().mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,tile", [
+    (16, 4096, 40, None), (16, 4096, 40, (4, 128)), (16, 4096, 40, (2, 64)),
+    (8, 1000, 128, (4, 128)),  # S1's pad-128 width; ragged S
+    (4, 300, 120, (4, 64)),    # head dim padded to 128 in shared memory only
+])
+def test_cuda_tf32_mode_matches_plain(bh, s, d, tile):
+    """The fp32-operand (TF32) mode and the bf16 mode with the same tile
+    against the fp32 plain version: each within 2% of its largest
+    magnitude, and TF32 on average closer to it than bf16 (P rounded to
+    TF32's 10-bit mantissa, not to bf16's 7)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _inputs((bh, s, d), seed=17)
+    scale = d ** -0.5
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention_bhsd_tiled(q, k, v, scale, operands="fp32", tile=tile)
+    bf16 = tfa.flash_attention_bhsd_tiled(q, k, v, scale, operands="bf16", tile=tile)
+    want = tfa.flash_attention_bhsd_plain(q.float(), k.float(), v.float(), scale)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bhsd_tf32"] == 1
+    assert tfa.LAUNCHES["flash_attention_bhsd_tiled"] == 1
+    for out in (got, bf16):
+        err = (out.float() - want).abs().max().item()
+        assert err <= RTOL * want.abs().max().item()
+    assert _mean_err(got, want) < _mean_err(bf16, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,tile", [
+    (2, 4096, 8, 40, None), (2, 4096, 8, 40, (1, 64)), (2, 4096, 8, 40, (2, 32)),
+    (2, 4096, 8, 40, (2, 96)),
+    (1, 300, 4, 48, None),   # ragged S, fewer heads, an unpadded head dim
+    (3, 1000, 2, 40, (2, 96)),  # ragged S in the widest staged tile
+])
+@pytest.mark.parametrize("operands", ["bf16", "fp32"])
+def test_cuda_multihead_matches_plain(b, s, h, d, tile, operands):
+    """Both operand modes against the fp32 plain version, within 2% of its
+    largest magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _inputs((b, s, h * d), seed=19)
+    scale = d ** -0.5
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention_multihead(q, k, v, scale, h, operands, tile)
+    want = tfa.flash_attention_packed_plain(q.float(), k.float(), v.float(), scale, h)
+    torch.cuda.synchronize()
+    counter = "flash_attention_multihead" + ("_tf32" if operands == "fp32" else "")
+    assert tfa.LAUNCHES[counter] == 1 and sum(tfa.LAUNCHES.values()) == 1
+    err = (got.float() - want).abs().max().item()
+    assert err <= RTOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_wrappers_refuse_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _inputs((2, 256, 40))
+    tfa.reset_launch_counts()
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.flash_attention_bhsd_tiled(q.float(), k.float(), v.float(), 0.1, "fp32")
+    with pytest.raises(ValueError, match="does not take"):
+        tfa.flash_attention_bhsd_tiled(q, k, v, 0.1, "fp32", tile=(8, 64))
+    for d in (64, 136):  # no chosen tile or TF32 mode outside the benches' head dims
+        x = torch.zeros(2, 256, d, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="does not take"):
+            tfa.flash_attention_bhsd_tiled(x, x, x, 0.1, "fp32")
+        with pytest.raises(ValueError, match="does not take"):
+            tfa.flash_attention_bhsd_tiled(x, x, x, 0.1, "bf16", tile=(4, 128))
+    p = torch.zeros(1, 256, 320, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.flash_attention_multihead(p.float(), p.float(), p.float(), 0.1, 8)
+    with pytest.raises(ValueError, match="does not take"):
+        tfa.flash_attention_multihead(p, p, p, 0.1, 8, tile=(2, 128))
+    with pytest.raises(ValueError, match="does not take"):  # d = 64
+        tfa.flash_attention_multihead(p, p, p, 0.1, 5)
+    many = torch.zeros(1, 256, 16 * 40, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="threads"):  # 16 heads x 2 warps > 512 threads
+        tfa.flash_attention_multihead(many, many, many, 0.1, 16)
+    assert set(tfa.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.cuda
