@@ -51,16 +51,20 @@ Phases, in order; any failure exits non-zero before the last line:
                wgmma kernels) and at d = 512 (flash_attention_bwd.cu); beside
                each K4 row the pair K4a + K4b, the function of SDPA's whole
                backward, timed in turns with it, and two launches of the pair
-               that must give the same bits.  The fp32 kernels of
-               flash_attention_fp32.cu (mma.sync TF32): K3 at the VAE's d =
-               512 with its LSE, K4a / K4b at nti's shapes and at d = 512,
-               each on fp32 inputs against the fp32 plain version.  On fp32
+               that must give the same bits.  The fp32 kernels: K3 at the
+               VAE's d = 512 with its LSE (flash_attention_fp32.cu, mma.sync
+               TF32); K4a / K4b at nti's shapes on the narrow backward's TF32
+               mode and at d = 512 on flash_attention_bwd_tf32.cu (scores and
+               TF32 GEMMs), the pair beside SDPA and bitwise repeated as in
+               bf16; their prep kernel (K, Q, dO transposed, D) against its
+               plain version; each on fp32 inputs.  On fp32
                rows the library call is SDPA at the kernels' precision (its
                math backend with TF32 matmuls allowed); SDPA's default fp32
                call (the memory-efficient kernel) is timed beside it, with
                both calls' mean error against the fp32 plain result.  Then one gradient through the
                full-width sd15 VAE mid-block attention (512 px: S = 4096, d =
-               512) against the plain path's.
+               512) against the plain path's, in bf16 and in fp32 (the fp32
+               one on flash_attention_bwd_tf32.cu).
 4. fused    -- the opt-in entry points of K5 and K6 (the JAX package keeps
                both off its served paths) on one full-width sd15 UNet call
                (random weights from a seed, bf16, the ptp backward's 4 rows):
@@ -88,15 +92,17 @@ Phases, in order; any failure exits non-zero before the last line:
                the matmuls and on for cuDNN's convolutions, PyTorch's
                defaults, printed; the attention kernels' products are TF32
                whatever these say): one gradient through fp32 self-attention
-               (the TF32 mode forward, K4a / K4b of flash_attention_fp32.cu)
-               and one full-width sd15 fp32 UNet call (4 rows) against the
+               (the TF32 mode forward, K4a / K4b on the narrow backward's
+               TF32 mode after its prep) and one full-width sd15 fp32 UNet
+               call (4 rows) against the
                plain attention path, as relative L2 errors; then one sd15
                fp32 etainv+ptp 512x512 edit served, which must be finite
                512x512x3, with its s/edit and the launches by route: K1 / K2
                on the TF32 mode and its prep kernel, the VAE's d = 512
                attention on flash_attention_fp32.cu; then one sd15 fp32
                nti+ptp edit served (FP32_NTI_STEPS steps), whose backward
-               must run on flash_attention_fp32.cu.
+               must run on the narrow backward's TF32 mode, one prep launch
+               a pair.
 7. nti      -- the sd15 nti+ptp edit server answers one 512x512 edit (null-
                text inversion: Adam on the null embedding through UNet
                gradients, 10 inner steps per step); the result must be finite
@@ -202,13 +208,13 @@ KERNELS = [
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:337 (_packed_fwd_impl -> "
                  "_flash_packed_kernel :295)",
      "counter": "flash_attention_packed", "source": "flash_attention_narrow.cu",
-     "skip_phases": ("fp32",),
+     "skip_phases": ("fp32", "vae_grad_fp32"),
      "shapes": [("packed", 4, 4096, 8, 40), ("packed", 2, 1024, 8, 80)]},
     {"name": "K2 flash_attention_bhsd (one pass)",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:97 (_flash_fwd_impl, "
                  "block_k == S -> _flash_onepass_kernel :41)",
      "counter": "flash_attention_bhsd_onepass", "source": "flash_attention_narrow.cu",
-     "skip_phases": ("fp32",),
+     "skip_phases": ("fp32", "vae_grad_fp32"),
      "shapes": [("onepass", 32, 1024, 1, 80)]},
     # fp32 K1 and K2 on the narrow kernel's TF32 mode, and its prep kernel
     # (prep shapes: K1's fp32 operands, S1's bf16 ones)
@@ -230,19 +236,19 @@ KERNELS = [
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:97 (_flash_fwd_impl, "
                  "block_k < S -> _flash_kernel :62)",
      "counter": "flash_attention_bhsd_blockwise", "source": "flash_attention_wide.cu",
-     "skip_phases": ("fp32",),
+     "skip_phases": ("fp32", "vae_grad_fp32"),
      "shapes": [("blockwise", 2, 4096, 1, 512), ("blockwise", 1, 4096, 1, 512)]},
     {"name": "K4a flash_attention_bwd_dq",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:218 (_flash_bwd_impl -> "
                  "_flash_dq_kernel :144)",
      "counter": "flash_attention_bwd_dq", "exclude": "flash_attention_bwd_dq_wide",
-     "source": "flash_attention_bwd_narrow.cu", "skip_phases": ("fp32",),
+     "source": "flash_attention_bwd_narrow.cu", "skip_phases": ("fp32", "vae_grad_fp32"),
      "shapes": [("bwd_dq", 1, 4096, 8, 40), ("bwd_dq", 1, 1024, 8, 80)]},
     {"name": "K4b flash_attention_bwd_dkv",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:235 (_flash_bwd_impl -> "
                  "_flash_dkv_kernel :170)",
      "counter": "flash_attention_bwd_dkv", "exclude": "flash_attention_bwd_dkv_wide",
-     "source": "flash_attention_bwd_narrow.cu", "skip_phases": ("fp32",),
+     "source": "flash_attention_bwd_narrow.cu", "skip_phases": ("fp32", "vae_grad_fp32"),
      "shapes": [("bwd_dkv", 1, 4096, 8, 40), ("bwd_dkv", 1, 1024, 8, 80)]},
     # K5 / S2 shapes: (kind, BH, Sq, D, sk); K5 at the 64x64, 32x32 and 16x16
     # cross-attentions of a 4-row sd15 UNet call
@@ -299,25 +305,42 @@ KERNELS = [
      "counter": "flash_attention_bwd_dkv_wide", "source": "flash_attention_bwd.cu",
      "shapes": [("bwd_dkv", 1, 4096, 1, 512), ("bwd_dkv", 2, 1024, 1, 512)]},
     # fp32 where the TF32 mode does not reach (flash_attention_fp32.cu): K3 at
-    # the VAE mid-block's d = 512 (decode's two rows, encode's one), and K4a /
-    # K4b at nti's shapes (its fp32 gradients) and at d = 512
+    # the VAE mid-block's d = 512 (decode's two rows, encode's one)
     {"name": "K3 fp32 (flash_attention_fp32.cu)",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:97 (_flash_fwd_impl, "
                  "block_k < S -> _flash_kernel :62), fp32 operands",
      "counter": "flash_attention_fwd_fp32", "source": "flash_attention_fp32.cu",
      "shapes": [("blockwise_fp32", 2, 4096, 1, 512), ("blockwise_fp32", 1, 4096, 1, 512)]},
-    {"name": "K4a fp32 (flash_attention_fp32.cu)",
+    # the fp32 backward: K4a / K4b at nti's shapes (its fp32 gradients) on the
+    # narrow backward's TF32 mode, at the VAE mid-block's d = 512 (one and two
+    # rows) on flash_attention_bwd_tf32.cu, and their prep kernel; each K4a /
+    # K4b row's time includes the prep launch its wrapper makes
+    {"name": "K4a fp32 (TF32 mode of the narrow backward)",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:218 (_flash_bwd_impl -> "
-                 "_flash_dq_kernel :144), fp32 operands",
-     "counter": "flash_attention_bwd_dq_fp32", "source": "flash_attention_fp32.cu",
-     "shapes": [("bwd_dq_fp32", 1, 4096, 8, 40), ("bwd_dq_fp32", 1, 1024, 8, 80),
-                ("bwd_dq_fp32", 1, 4096, 1, 512)]},
-    {"name": "K4b fp32 (flash_attention_fp32.cu)",
+                 "_flash_dq_kernel :144), fp32 operands, d <= 128",
+     "counter": "flash_attention_bwd_dq_tf32", "source": "flash_attention_bwd_narrow.cu",
+     "shapes": [("bwd_dq_fp32", 1, 4096, 8, 40), ("bwd_dq_fp32", 1, 1024, 8, 80)]},
+    {"name": "K4b fp32 (TF32 mode of the narrow backward)",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:235 (_flash_bwd_impl -> "
-                 "_flash_dkv_kernel :170), fp32 operands",
-     "counter": "flash_attention_bwd_dkv_fp32", "source": "flash_attention_fp32.cu",
-     "shapes": [("bwd_dkv_fp32", 1, 4096, 8, 40), ("bwd_dkv_fp32", 1, 1024, 8, 80),
-                ("bwd_dkv_fp32", 1, 4096, 1, 512)]},
+                 "_flash_dkv_kernel :170), fp32 operands, d <= 128",
+     "counter": "flash_attention_bwd_dkv_tf32", "source": "flash_attention_bwd_narrow.cu",
+     "shapes": [("bwd_dkv_fp32", 1, 4096, 8, 40), ("bwd_dkv_fp32", 1, 1024, 8, 80)]},
+    {"name": "K4a fp32, d > 128 (scores + TF32 GEMM)",
+     "replaces": "eta_inversion_tpu/ops/flash_attention.py:218 (_flash_bwd_impl -> "
+                 "_flash_dq_kernel :144), fp32 operands, d > 128",
+     "counter": "flash_attention_bwd_dq_tf32_wide", "source": "flash_attention_bwd_tf32.cu",
+     "shapes": [("bwd_dq_fp32", 1, 4096, 1, 512), ("bwd_dq_fp32", 2, 4096, 1, 512)]},
+    {"name": "K4b fp32, d > 128 (scores + TF32 GEMMs)",
+     "replaces": "eta_inversion_tpu/ops/flash_attention.py:235 (_flash_bwd_impl -> "
+                 "_flash_dkv_kernel :170), fp32 operands, d > 128",
+     "counter": "flash_attention_bwd_dkv_tf32_wide", "source": "flash_attention_bwd_tf32.cu",
+     "shapes": [("bwd_dkv_fp32", 1, 4096, 1, 512), ("bwd_dkv_fp32", 2, 4096, 1, 512)]},
+    {"name": "TF32 backward prep (K, Q, dO transposed; D)",
+     "replaces": "none: the fp32 backward's B operands and D for K4a / K4b "
+                 "(eta_inversion_tpu/ops/flash_attention.py:210-213 build kt, qt, dot with XLA)",
+     "counter": "flash_attention_bwd_tf32_prep", "source": "flash_attention_bwd_narrow.cu",
+     "shapes": [("bwd_prep", 1, 4096, 8, 40), ("bwd_prep", 1, 1024, 8, 80),
+                ("bwd_prep", 1, 4096, 1, 512)]},
 ]
 FWD_COUNTERS = ("flash_attention_packed", "flash_attention_bhsd_onepass",
                 "flash_attention_bhsd_blockwise")
@@ -328,15 +351,17 @@ MICROBENCH_COUNTERS = ("flash_attention_bhsd_tiled", "flash_attention_bhsd_tf32"
                        "flash_attention_multihead_tf32")
 OPT_IN_COUNTERS = ("crossk_attention", "geglu_fused", "flash_attention_multihead",
                    *MICROBENCH_COUNTERS)
-# the fp32 kernels: the TF32 mode, its prep kernel and flash_attention_fp32.cu,
-# idle on the bf16 served paths
+# the fp32 kernels: the TF32 mode and its prep kernel, flash_attention_fp32.cu,
+# and the backward's TF32 routes and their prep kernel, idle on the bf16
+# served paths
 FP32_COUNTERS = ("flash_attention_narrow_tf32", "flash_attention_tf32_prep",
-                 "flash_attention_fwd_fp32", "flash_attention_bwd_dq_fp32",
-                 "flash_attention_bwd_dkv_fp32")
+                 "flash_attention_fwd_fp32", "flash_attention_bwd_dq_tf32",
+                 "flash_attention_bwd_dkv_tf32", "flash_attention_bwd_dq_tf32_wide",
+                 "flash_attention_bwd_dkv_tf32_wide", "flash_attention_bwd_tf32_prep")
 # the libraries of the wgmma kernels: the forward up to head dim 128 (K1,
 # K2), the backward up to 128 (K4a, K4b), the forward above it (K3 at the
-# VAE's d = 512) and the fused GEGLU (K6)
-WGMMA_LIBS = (fa.NARROW_LIB, fa.BWD_NARROW_LIB, fa.WIDE_LIB, "eti_geglu")
+# VAE's d = 512), the fp32 backward above it and the fused GEGLU (K6)
+WGMMA_LIBS = (fa.NARROW_LIB, fa.BWD_NARROW_LIB, fa.WIDE_LIB, fa.BWD_TF32_LIB, "eti_geglu")
 # the VAE gradient check: kernels against the plain path, relative L2 per
 # gradient.  One attention layer: the kernels round P and dS to bf16, the
 # plain path's bf16 autograd rounds dP and its products, about 0.1-0.3% of
@@ -663,6 +688,30 @@ def _prep_case(kind, shape, seed):
             f"shape(B,S,H,d)={shape} {'fp32' if fp32 else 'bf16'}")
 
 
+def _bwd_prep_case(kind, shape, seed):
+    """The fp32 backward's prep kernel at (B, S, H, d) (packed layout), as
+    flash_attention_bwd launches it (K^T, Q^T, dO^T and D): the transposes
+    bit for bit against its plain version, D (another summation order)
+    within the row's bound.  No one PyTorch call computes it; the bound
+    counts K, Q, dO and O read and the three transposes and D written."""
+    b, s, h, d = shape
+    q, k, do, o = _inputs("packed_fp32", b, s, h, d, seed, n=4)
+    run = lambda: fa.flash_attention_bwd_tf32_prep(q, k, do, o, h)  # noqa: E731
+    plain = lambda: fa.bwd_tf32_prep_plain(q, k, do, o, h)  # noqa: E731
+
+    def check():
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got[:3], want[:3])):
+            raise RuntimeError("the TF32 backward prep kernel's transposes differ from its "
+                               "plain version")
+        return list(zip(got, want))
+
+    n = b * s * h * d
+    return (run, plain, check, None, _roofline(0, 0, 0, 7 * n * 4 + b * h * s * 4),
+            f"shape(B,S,H,d)={shape} fp32")
+
+
 def _bwd_case(kind, q, k, v, b, s, h, d, scale, seed):
     """As _fwd_case for K4a / K4b, on seeded q, k, v, dO and the plain
     forward's o and LSE (K4b also on the D that K4a wrote); check also fills
@@ -928,7 +977,8 @@ def _multihead_case(kind, shape, seed):
 
 CASES = {"crossk": _crossk_case, "crossk_padded": _crossk_case, "geglu": _geglu_case,
          "tiled": _sweep_case, "tiled_tf32": _sweep_case, "prod": _sweep_case,
-         "multihead": _multihead_case, "prep_fp32": _prep_case, "prep_bf16": _prep_case}
+         "multihead": _multihead_case, "prep_fp32": _prep_case, "prep_bf16": _prep_case,
+         "bwd_prep": _bwd_prep_case}
 
 
 def phase_kernels() -> list:
@@ -988,12 +1038,13 @@ def _time_library(library):
     return t_l, _top_kernel(library)
 
 
-def phase_vae_grad() -> dict:
+def phase_vae_grad(dtype=torch.bfloat16) -> dict:
     """One gradient through the full-width sd15 VAE mid-block attention at
     512 px (512 channels, one head, S = 4096, d = 512; random weights from a
-    seed, bf16): through the kernels (the blockwise forward with its LSE,
-    then K4a / K4b at d = 512) against the plain attention path, for the
-    input and the q / k / v projection weights."""
+    seed, bf16 or fp32): through the kernels (the blockwise forward with its
+    LSE, then K4a / K4b at d = 512: flash_attention_bwd.cu in bf16,
+    flash_attention_bwd_tf32.cu in fp32) against the plain attention path,
+    for the input and the q / k / v projection weights."""
     from eta_inversion_tpu_torch.models import SD15
     from eta_inversion_tpu_torch.models.vae import VAEAttention
 
@@ -1001,9 +1052,12 @@ def phase_vae_grad() -> dict:
     side = SD15.image_size // 2 ** (len(SD15.vae.block_out_channels) - 1)
     with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
         torch.manual_seed(0)
-        mod = VAEAttention(c, SD15.vae.norm_num_groups).cuda().to(torch.bfloat16)
+        mod = VAEAttention(c, SD15.vae.norm_num_groups).cuda().to(dtype)
     g = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn(1, c, side, side, generator=g, device="cuda").bfloat16()
+    x = torch.randn(1, c, side, side, generator=g, device="cuda").to(dtype)
+    fp32 = dtype == torch.float32
+    # fp32: the TF32 kernels against the plain path (FP32_RTOL's reasoning)
+    rtol = FP32_RTOL if fp32 else VAE_GRAD_RTOL
 
     def grads():
         mod.zero_grad()
@@ -1025,15 +1079,18 @@ def phase_vae_grad() -> dict:
     errs = {name: ((a - b).norm() / b.norm()).item()
             for a, b, name in zip(got, want, ("x", "to_q", "to_k", "to_v"))}
     log(f"[kernels] gradient through the sd15 VAE mid-block attention ({c} channels, "
-        f"S={side * side}, d={c}): kernels vs plain path rel L2 "
+        f"S={side * side}, d={c}, {dtype}): kernels vs plain path rel L2 "
         + ", ".join(f"d{n} {e:.3e}" for n, e in errs.items())
-        + f" (bound {VAE_GRAD_RTOL}); launches K3 {counts['flash_attention_bhsd_blockwise']} "
-        f"K4a {counts['flash_attention_bwd_dq']} K4b {counts['flash_attention_bwd_dkv']}")
-    if not all(np.isfinite(e) and e <= VAE_GRAD_RTOL for e in errs.values()):
+        + f" (bound {rtol}); launches "
+        + json.dumps({k: n for k, n in counts.items() if n}))
+    if not all(np.isfinite(e) and e <= rtol for e in errs.values()):
         raise RuntimeError(f"VAE attention gradient disagrees with the plain path: {errs}")
-    if counts["flash_attention_bwd_dq_wide"] == 0 or counts["flash_attention_bwd_dkv_wide"] == 0:
-        raise RuntimeError("the VAE attention gradient launched no backward kernel of "
-                           "flash_attention_bwd.cu")
+    sub, src = ("tf32_wide", "flash_attention_bwd_tf32.cu") if fp32 else \
+        ("wide", "flash_attention_bwd.cu")
+    if not counts[f"flash_attention_bwd_dq_{sub}"] == counts["flash_attention_bwd_dq"] == 1 \
+            or not counts[f"flash_attention_bwd_dkv_{sub}"] == counts["flash_attention_bwd_dkv"] == 1:
+        raise RuntimeError(f"the {dtype} VAE attention gradient's backward is not on {src}: "
+                           f"{counts}")
     del mod, got, want
     torch.cuda.empty_cache()
     return counts
@@ -1376,7 +1433,8 @@ def phase_fp32(steps: int) -> dict:
             and tf32 + counts["flash_attention_fwd_fp32"] == fwd
 
     # one gradient through fp32 self-attention at the UNet's 64x64 level: the
-    # TF32 forward with its LSE, K4a / K4b of flash_attention_fp32.cu from it
+    # TF32 forward with its LSE, K4a / K4b on the narrow backward's TF32 mode
+    # from it, after one prep launch
     b, s, h, d = 1, 4096, 8, 40
     base = _inputs("packed_fp32", b, s, h, d, seed=11)
 
@@ -1403,8 +1461,8 @@ def phase_fp32(steps: int) -> dict:
         raise RuntimeError(f"fp32 attention gradient disagrees with the plain path: {grad_errs}")
     want_counts = {"flash_attention_packed": 1, "flash_attention_narrow_tf32": 1,
                    "flash_attention_tf32_prep": 1, "flash_attention_bwd_dq": 1,
-                   "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq_fp32": 1,
-                   "flash_attention_bwd_dkv_fp32": 1}
+                   "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq_tf32": 1,
+                   "flash_attention_bwd_dkv_tf32": 1, "flash_attention_bwd_tf32_prep": 1}
     if grad_counts != want_counts:
         raise RuntimeError(f"fp32 gradient launches {grad_counts}, expected {want_counts}")
     del base, got, want
@@ -1494,7 +1552,8 @@ FP32_NTI_STEPS = 10
 
 def _fp32_nti_edit() -> dict:
     """One served sd15 fp32 nti+ptp edit: finite 512x512x3, its s/edit, and
-    every backward launch on flash_attention_fp32.cu."""
+    every backward launch on the narrow backward's TF32 mode, one prep
+    launch a pair."""
     from eta_inversion_tpu_torch import serve
 
     args = serve.parse_args([
@@ -1520,15 +1579,17 @@ def _fp32_nti_edit() -> dict:
     _check_image(post(res["image"]), "fp32 nti edit", 512)
     iters = sum(inverter.last_inner_steps)
     bwd = {k: counts[k] for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                                  "flash_attention_bwd_dq_fp32",
-                                  "flash_attention_bwd_dkv_fp32")}
+                                  "flash_attention_bwd_dq_tf32",
+                                  "flash_attention_bwd_dkv_tf32",
+                                  "flash_attention_bwd_tf32_prep")}
     log(f"[fp32] 1 sd15 nti+ptp edit in fp32 ({FP32_NTI_STEPS} steps x up to 10 inner "
         f"steps, {iters} inner iterations) in {secs:.2f} s/edit; backward launches "
         f"{json.dumps(bwd)}; forward launches "
         f"{json.dumps({k: counts[k] for k in FWD_COUNTERS + FP32_COUNTERS[:3]})}")
-    if not (bwd["flash_attention_bwd_dq_fp32"] == bwd["flash_attention_bwd_dq"] > 0
-            and bwd["flash_attention_bwd_dkv_fp32"] == bwd["flash_attention_bwd_dkv"] > 0):
-        raise RuntimeError(f"fp32 nti edit: the backward not on flash_attention_fp32.cu: {bwd}")
+    if not (bwd["flash_attention_bwd_dq_tf32"] == bwd["flash_attention_bwd_dq"] > 0
+            and bwd["flash_attention_bwd_dkv_tf32"] == bwd["flash_attention_bwd_dkv"]
+            == bwd["flash_attention_bwd_tf32_prep"] == bwd["flash_attention_bwd_dq"]):
+        raise RuntimeError(f"fp32 nti edit: the backward not on the TF32 mode: {bwd}")
     _check_opt_in_idle(counts, "fp32 nti", fp32=True)
     return {"launches": counts, "seconds_per_edit": secs, "inner_iterations": iters}
 
@@ -1708,6 +1769,7 @@ def main(argv=None) -> int:
     by_phase = {}
     if "kernels" in phases:
         by_phase["vae_grad"] = phase_vae_grad()
+        by_phase["vae_grad_fp32"] = phase_vae_grad(torch.float32)
     if "fused" in phases:
         by_phase["fused"] = phase_fused()["launches"]
     if "microbench" in phases:

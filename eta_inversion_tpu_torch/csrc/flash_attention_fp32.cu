@@ -1,50 +1,39 @@
-// Exact-softmax attention for fp32 operands where the TF32 mode of
-// flash_attention_narrow.cu does not reach, for Hopper (sm_90a): the forward
-// for head dims in (128, 512] (K3 at the VAE mid-block's d = 512 in an fp32
-// model) and the backward, dQ and dK / dV, at every head dim up to 512.
+// Exact-softmax attention forward for fp32 operands where the TF32 mode of
+// flash_attention_narrow.cu does not reach, for Hopper (sm_90a): head dims in
+// (128, 512] (K3 at the VAE mid-block's d = 512 in an fp32 model).  The fp32
+// backward runs on the TF32 routes of flash_attention_bwd_narrow.cu (d <=
+// 128) and flash_attention_bwd_tf32.cu (above).
 //
-// Replaces, for fp32 operands, the Pallas TPU kernels of
+// Replaces, for fp32 operands above head dim 128, the Pallas TPU kernel of
 // eta_inversion_tpu/ops/flash_attention.py
-//   K3   _flash_kernel      (:62, _flash_fwd_impl :97, pallas_call :116), d > 128
-//   K4a  _flash_dq_kernel   (:144, _flash_bwd_impl :202, pallas_call :218)
-//   K4b  _flash_dkv_kernel  (:170, pallas_call :235)
-// fp32 in and out, with the natural-log row logsumexp L in fp32.  The
-// backward keeps JAX's atomic-free split, as flash_attention_bwd.cu does for
-// bf16: K4a walks the key tiles for one q-tile and writes dQ and D =
-// rowsum(dO o O) for its rows; K4b, launched after it on the same stream,
-// walks the q-tiles for one key tile and writes dK and dV.  Every output
-// element is summed by one thread in a fixed order: the same bits run to run.
+//   K3   _flash_kernel      (:62, _flash_fwd_impl :97, pallas_call :116)
+// fp32 in and out, with the natural-log row logsumexp L in fp32.
 //
 // Precision: the products are mma.sync m16n8k8 TF32 with fp32 accumulation,
 // the port's policy for fp32 attention on the card (the narrow forward's
 // TF32 mode does the same), whatever torch.backends.cuda.matmul.allow_tf32
 // says.  Operands read from device memory go to the tensor cores as they
-// are (the hardware reads their top 19 bits: truncation); P and dS, which
-// the kernels compute, are rounded with cvt.rna.
+// are (the hardware reads their top 19 bits: truncation); P, which the
+// kernel computes, is rounded with cvt.rna.
 //
 // Fragments are read from shared memory one element at a time, from rows of
-// pitch DP + 4 floats (4 mod 32 banks), which makes each of the three reads
-// below free of bank conflicts.  No shuffles: a thread's accumulator of one
-// n8 tile holds keys 2 t4 and 2 t4 + 1 of rows g and g + 8 (g = lane / 4, t4
-// = lane % 4); used as the A fragment of a k8 step as it stands (a0 = c0,
-// a1 = c2, a2 = c1, a3 = c3), its k-index t4 is key 2 t4 and t4 + 4 is key
-// 2 t4 + 1, so the B fragment of that step reads keys 2 t4 and 2 t4 + 1
-// (ldb_keys).  The sum over keys is taken in another order; nothing else
-// changes.
+// pitch DP + 4 floats (4 mod 32 banks), which makes each read free of bank
+// conflicts.  No shuffles: a thread's accumulator of one n8 tile holds keys
+// 2 t4 and 2 t4 + 1 of rows g and g + 8 (g = lane / 4, t4 = lane % 4); used
+// as the A fragment of a k8 step as it stands (a0 = c0, a1 = c2, a2 = c1, a3
+// = c3), its k-index t4 is key 2 t4 and t4 + 4 is key 2 t4 + 1, so the B
+// fragment of that step reads keys 2 t4 and 2 t4 + 1 (ldb_keys).  The sum
+// over keys is taken in another order; nothing else changes.
 //
-// Tiles: one block is NW warps of 16 rows (query rows in the forward and
-// K4a, key rows in K4b) of one (batch, head); the resident operands hold the
-// whole padded head dim, the streamed tile too.  Output rows wider than a
-// thread's registers (DC columns at a time) wait in per-thread shared-memory
-// slots between tiles, as in flash_attention_bwd.cu.  The head dim is
-// zero-padded to DP in shared memory only, and the products' k-loops stop at
-// d.
+// Tiles: one block is NW warps of 16 query rows of one (batch, head); Q holds
+// the whole padded head dim, the streamed K / V tiles too.  Output rows wider
+// than a thread's registers (DC columns at a time) wait in per-thread
+// shared-memory slots between tiles.  The head dim is zero-padded to DP in
+// shared memory only, and the products' k-loops stop at d.
 //
-// What bounds it on the H100: at d = 512 the products (4 S^2 d forward, 10
-// S^2 d backward per head) against ~4 S d fp32 values each way; the tensor
-// cores' TF32 issue, far above the ridge.  Simple first: no TMA, no wgmma
-// (its .tf32 form reads shared-memory operands K-major only, and dQ += dS K
-// and the dK / dV products read theirs N-major), no pipelining.
+// What bounds it on the H100: at d = 512 the products (4 S^2 d per head)
+// against ~4 S d fp32 values each way; the tensor cores' TF32 issue, far
+// above the ridge.  Simple first: no TMA, no wgmma, no pipelining.
 
 #include "flash_common.cuh"
 
@@ -54,23 +43,16 @@ struct Fp32Params {
   const float* q;
   const float* k;
   const float* v;
-  const float* o;     // the forward's output, read by K4a (D)
-  const float* dout;
-  float* out;         // the forward's o
-  float* lse;         // the forward's LSE (null: not asked), or the backward's input
-  float* dvec;        // D, contiguous (batch * heads, sq)
-  float* dq;
-  float* dk;
-  float* dv;
+  float* out;         // o
+  float* lse;         // the LSE (null: not asked)
   int heads, sq, sk, d;
-  // element strides (batch, head, row) of q, k, v, o, dO, dQ, dK, dV
-  long long st[8][3];
+  // element strides (batch, head, row) of q, k, v, o
+  long long st[4][3];
   long long lse_sb, lse_sh;
-  float scale;
   float scale_log2;
 };
 
-enum { Q = 0, K = 1, V = 2, O = 3, DO = 4, DQ = 5, DK = 6, DV = 7 };
+enum { Q = 0, K = 1, V = 2, O = 3 };
 
 __device__ __forceinline__ long long base(const Fp32Params& p, int t, int b, int h) {
   return b * p.st[t][0] + h * p.st[t][1];
@@ -261,294 +243,6 @@ __global__ void __launch_bounds__(NW * 32) flash_fp32_fwd_kernel(const Fp32Param
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4a: one block = NW warps x 16 query rows of one (batch, head); loops over
-// key tiles of BK.  dQ, DC columns at a time, waits in shared-memory slots
-// when DC < DP.
-// ---------------------------------------------------------------------------
-template <int DP, int NW, int BK, int DC>
-__global__ void __launch_bounds__(NW * 32) flash_fp32_bwd_dq_kernel(const Fp32Params p) {
-  constexpr int BQ = 16 * NW;
-  constexpr int LD = DP + 4;
-  constexpr int NT_S = BK / 8;
-  constexpr int NT_D = DC / 8;
-  constexpr int NCHUNK = DP / DC;
-  constexpr int NTHREADS = NW * 32;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* dos = qs + BQ * LD;
-  float* ks = dos + BQ * LD;
-  float* vs = ks + BK * LD;
-  float* rowd = vs + BK * LD;  // D of the block's rows
-  float* accs = rowd + BQ;     // dQ slots
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads;
-  const int h = bh % p.heads;
-  const int q0 = blockIdx.x * BQ;
-  const int wrow = warp * 16;
-
-  const float* qg = p.q + base(p, Q, b, h);
-  const float* kg = p.k + base(p, K, b, h);
-  const float* vg = p.v + base(p, V, b, h);
-  const float* og = p.o + base(p, O, b, h);
-  const float* dog = p.dout + base(p, DO, b, h);
-  float* dqg = p.dq + base(p, DQ, b, h);
-  const float* lg = p.lse + b * p.lse_sb + h * p.lse_sh;
-  float* dvg = p.dvec + (long long)bh * p.sq;
-
-  load_tile_f32<DP, LD, BQ, NTHREADS>(qs, qg, p.st[Q][2], q0, p.sq, p.d, tid);
-  load_tile_f32<DP, LD, BQ, NTHREADS>(dos, dog, p.st[DO][2], q0, p.sq, p.d, tid);
-
-  // D = rowsum(dO o O), one thread per row, from device memory in 4-wide
-  // vectors
-  for (int r = tid; r < BQ; r += NTHREADS) {
-    float acc = 0.f;
-    const int row = q0 + r;
-    if (row < p.sq) {
-      const float* orow = og + (long long)row * p.st[O][2];
-      const float* drow = dog + (long long)row * p.st[DO][2];
-      for (int c = 0; c < p.d; c += 4) {
-        const float4 ov = *reinterpret_cast<const float4*>(orow + c);
-        const float4 dv = *reinterpret_cast<const float4*>(drow + c);
-        acc = fmaf(ov.x, dv.x, acc);
-        acc = fmaf(ov.y, dv.y, acc);
-        acc = fmaf(ov.z, dv.z, acc);
-        acc = fmaf(ov.w, dv.w, acc);
-      }
-      dvg[row] = acc;
-    }
-    rowd[r] = acc;
-  }
-  __syncthreads();
-
-  // rows g and g + 8 of this warp: L in the log2 domain, and D
-  const int r0 = wrow + g;
-  const int r1 = r0 + 8;
-  const float l2[2] = {q0 + r0 < p.sq ? lg[q0 + r0] * kLog2e : 0.f,
-                       q0 + r1 < p.sq ? lg[q0 + r1] * kLog2e : 0.f};
-  const float dr[2] = {rowd[r0], rowd[r1]};
-
-  float dq_acc[NT_D][4];
-  zero_acc(dq_acc);
-  float* slots = accs + (size_t)warp * NCHUNK * NT_D * 128;
-  if constexpr (NCHUNK > 1) {
-    for (int c = 0; c < NCHUNK; ++c) store_slots(slots, c, lane, dq_acc);
-  }
-
-  for (int k0 = 0; k0 < p.sk; k0 += BK) {
-    load_tile_f32<DP, LD, BK, NTHREADS>(ks, kg, p.st[K][2], k0, p.sk, p.d, tid);
-    load_tile_f32<DP, LD, BK, NTHREADS>(vs, vg, p.st[V][2], k0, p.sk, p.d, tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T (16 x BK per warp)
-    float s[NT_S][4], dp[NT_S][4];
-    zero_acc(s);
-    zero_acc(dp);
-#pragma unroll 2
-    for (int kk = 0; kk < p.d; kk += 8) {
-      uint32_t aq[4], ado[4];
-      lda<LD>(aq, qs, wrow, kk, g, t4);
-      lda<LD>(ado, dos, wrow, kk, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        uint32_t bk[2], bv[2];
-        ldb_rows<LD>(bk, ks, nt * 8, kk, g, t4);
-        ldb_rows<LD>(bv, vs, nt * 8, kk, g, t4);
-        mma_1688_tf32(s[nt], aq, bk);
-        mma_1688_tf32(dp[nt], ado, bv);
-      }
-    }
-
-    // dS = P o (dP - D), P = exp2(s * scale * log2 e - L * log2 e); keys
-    // past the end are masked
-    uint32_t da[NT_S][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const int r = e >> 1;
-        const float pr = key < p.sk ? exp2f(s[nt][e] * p.scale_log2 - l2[r]) : 0.f;
-        s[nt][e] = pr * (dp[nt][e] - dr[r]);
-      }
-      acc_a(da[nt], s[nt]);
-    }
-
-    // dQ += dS (16 x BK) . K (BK x DP), chunk by chunk
-    for (int c = 0; c < NCHUNK; ++c) {
-      if constexpr (NCHUNK > 1) load_slots(dq_acc, slots, c, lane);
-#pragma unroll
-      for (int dt = 0; dt < NT_D; ++dt) {
-        if (c * DC + dt * 8 < p.d) {
-#pragma unroll
-          for (int j = 0; j < NT_S; ++j) {
-            uint32_t bb[2];
-            ldb_keys<LD>(bb, ks, j * 8, c * DC + dt * 8, g, t4);
-            mma_1688_tf32(dq_acc[dt], da[j], bb);
-          }
-        }
-      }
-      if constexpr (NCHUNK > 1) store_slots(slots, c, lane, dq_acc);
-    }
-    __syncthreads();  // the next tile overwrites ks / vs
-  }
-
-  const float sc[2] = {p.scale, p.scale};
-  for (int c = 0; c < NCHUNK; ++c) {
-    if constexpr (NCHUNK > 1) load_slots(dq_acc, slots, c, lane);
-    store_f32(dqg, p.st[DQ][2], q0 + r0, p.sq, c * DC, p.d, t4, dq_acc, sc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4b: one block = NW warps x 16 key rows of one (batch, head); loops over
-// query tiles of BQ.  DC as in K4a, for dK and dV.
-// ---------------------------------------------------------------------------
-template <int DP, int NW, int BQ, int DC>
-__global__ void __launch_bounds__(NW * 32) flash_fp32_bwd_dkv_kernel(const Fp32Params p) {
-  constexpr int BKB = 16 * NW;
-  constexpr int LD = DP + 4;
-  constexpr int NT_S = BQ / 8;
-  constexpr int NT_D = DC / 8;
-  constexpr int NCHUNK = DP / DC;
-  constexpr int NTHREADS = NW * 32;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + BKB * LD;
-  float* qs = vs + BKB * LD;
-  float* dos = qs + BQ * LD;
-  float* l2s = dos + BQ * LD;  // L * log2 e per query
-  float* ds_ = l2s + BQ;       // D per query
-  float* accs = ds_ + BQ;      // dK, dV slots
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads;
-  const int h = bh % p.heads;
-  const int k0 = blockIdx.x * BKB;
-  const int wrow = warp * 16;
-
-  const float* qg = p.q + base(p, Q, b, h);
-  const float* kg = p.k + base(p, K, b, h);
-  const float* vg = p.v + base(p, V, b, h);
-  const float* dog = p.dout + base(p, DO, b, h);
-  float* dkg = p.dk + base(p, DK, b, h);
-  float* dvg = p.dv + base(p, DV, b, h);
-  const float* lg = p.lse + b * p.lse_sb + h * p.lse_sh;
-  const float* dg = p.dvec + (long long)bh * p.sq;
-
-  load_tile_f32<DP, LD, BKB, NTHREADS>(ks, kg, p.st[K][2], k0, p.sk, p.d, tid);
-  load_tile_f32<DP, LD, BKB, NTHREADS>(vs, vg, p.st[V][2], k0, p.sk, p.d, tid);
-
-  float dk_acc[NT_D][4], dv_acc[NT_D][4];
-  zero_acc(dk_acc);
-  zero_acc(dv_acc);
-  float* dk_slots = accs + (size_t)warp * 2 * NCHUNK * NT_D * 128;
-  float* dv_slots = dk_slots + NCHUNK * NT_D * 128;
-  if constexpr (NCHUNK > 1) {
-    for (int c = 0; c < NCHUNK; ++c) {
-      store_slots(dk_slots, c, lane, dk_acc);
-      store_slots(dv_slots, c, lane, dv_acc);
-    }
-  }
-
-  for (int q0 = 0; q0 < p.sq; q0 += BQ) {
-    load_tile_f32<DP, LD, BQ, NTHREADS>(qs, qg, p.st[Q][2], q0, p.sq, p.d, tid);
-    load_tile_f32<DP, LD, BQ, NTHREADS>(dos, dog, p.st[DO][2], q0, p.sq, p.d, tid);
-    for (int i = tid; i < BQ; i += NTHREADS) {
-      const int qi = q0 + i;
-      // L = +inf masks a query past the end: exp2(x - inf) = 0
-      l2s[i] = qi < p.sq ? lg[qi] * kLog2e : INFINITY;
-      ds_[i] = qi < p.sq ? dg[qi] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T (16 keys x BQ queries per warp)
-    float st[NT_S][4], dpt[NT_S][4];
-    zero_acc(st);
-    zero_acc(dpt);
-#pragma unroll 2
-    for (int kk = 0; kk < p.d; kk += 8) {
-      uint32_t ak[4], av[4];
-      lda<LD>(ak, ks, wrow, kk, g, t4);
-      lda<LD>(av, vs, wrow, kk, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        uint32_t bq[2], bdo[2];
-        ldb_rows<LD>(bq, qs, nt * 8, kk, g, t4);
-        ldb_rows<LD>(bdo, dos, nt * 8, kk, g, t4);
-        mma_1688_tf32(st[nt], ak, bq);
-        mma_1688_tf32(dpt[nt], av, bdo);
-      }
-    }
-
-    // P^T and dS^T = P^T o (dP^T - D^T); the query is the column
-    uint32_t pa[NT_S][4], dsa[NT_S][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t4 * 2 + (e & 1);
-        const float pt = exp2f(st[nt][e] * p.scale_log2 - l2s[col]);
-        st[nt][e] = pt;
-        dpt[nt][e] = pt * (dpt[nt][e] - ds_[col]);
-      }
-      acc_a(pa[nt], st[nt]);
-      acc_a(dsa[nt], dpt[nt]);
-    }
-
-    // dV += P^T . dO and dK += dS^T . Q (16 keys x DC of each chunk)
-    for (int c = 0; c < NCHUNK; ++c) {
-      if constexpr (NCHUNK > 1) {
-        load_slots(dk_acc, dk_slots, c, lane);
-        load_slots(dv_acc, dv_slots, c, lane);
-      }
-#pragma unroll
-      for (int dt = 0; dt < NT_D; ++dt) {
-        if (c * DC + dt * 8 < p.d) {
-#pragma unroll
-          for (int j = 0; j < NT_S; ++j) {
-            uint32_t bdo[2], bq[2];
-            ldb_keys<LD>(bdo, dos, j * 8, c * DC + dt * 8, g, t4);
-            ldb_keys<LD>(bq, qs, j * 8, c * DC + dt * 8, g, t4);
-            mma_1688_tf32(dv_acc[dt], pa[j], bdo);
-            mma_1688_tf32(dk_acc[dt], dsa[j], bq);
-          }
-        }
-      }
-      if constexpr (NCHUNK > 1) {
-        store_slots(dk_slots, c, lane, dk_acc);
-        store_slots(dv_slots, c, lane, dv_acc);
-      }
-    }
-    __syncthreads();  // the next tile overwrites qs / dos / l2s / ds_
-  }
-
-  const int row0 = k0 + wrow + g;
-  const float sc[2] = {p.scale, p.scale};
-  const float one[2] = {1.f, 1.f};
-  for (int c = 0; c < NCHUNK; ++c) {
-    if constexpr (NCHUNK > 1) {
-      load_slots(dk_acc, dk_slots, c, lane);
-      load_slots(dv_acc, dv_slots, c, lane);
-    }
-    store_f32(dkg, p.st[DK][2], row0, p.sk, c * DC, p.d, t4, dk_acc, sc);
-    store_f32(dvg, p.st[DV][2], row0, p.sk, c * DC, p.d, t4, dv_acc, one);
-  }
-}
-
 template <typename Kern>
 int launch(Kern kern, size_t smem, dim3 grid, int threads, const Fp32Params& p,
            cudaStream_t stream) {
@@ -558,12 +252,6 @@ int launch(Kern kern, size_t smem, dim3 grid, int threads, const Fp32Params& p,
   if (err != cudaSuccess) return (int)err;
   kern<<<grid, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-// slots of a warp's NCHUNK x (DC / 8) accumulator tiles, none when DC == DP
-template <int DP, int DC>
-constexpr size_t slot_floats() {
-  return DP == DC ? 0 : (size_t)(DP / DC) * (DC / 8) * 128;
 }
 
 template <int DP, int NW, int BK, int DC>
@@ -576,26 +264,6 @@ int launch_fwd(const Fp32Params& p, int batch, cudaStream_t stream) {
   return launch(flash_fp32_fwd_kernel<DP, NW, BK, DC>, smem, grid, NW * 32, p, stream);
 }
 
-template <int DP, int NW, int BK, int DC>
-int launch_dq(const Fp32Params& p, int batch, cudaStream_t stream) {
-  constexpr int BQ = 16 * NW;
-  constexpr size_t smem = ((size_t)(2 * BQ + 2 * BK) * (DP + 4) + BQ +
-                           NW * slot_floats<DP, DC>()) * sizeof(float);
-  static_assert(smem <= 232448, "tile does not fit a block's shared memory");
-  const dim3 grid((p.sq + BQ - 1) / BQ, batch * p.heads);
-  return launch(flash_fp32_bwd_dq_kernel<DP, NW, BK, DC>, smem, grid, NW * 32, p, stream);
-}
-
-template <int DP, int NW, int BQ, int DC>
-int launch_dkv(const Fp32Params& p, int batch, cudaStream_t stream) {
-  constexpr int BKB = 16 * NW;
-  constexpr size_t smem = ((size_t)(2 * BKB + 2 * BQ) * (DP + 4) + 2 * BQ +
-                           2 * NW * slot_floats<DP, DC>()) * sizeof(float);
-  static_assert(smem <= 232448, "tile does not fit a block's shared memory");
-  const dim3 grid((p.sk + BKB - 1) / BKB, batch * p.heads);
-  return launch(flash_fp32_bwd_dkv_kernel<DP, NW, BQ, DC>, smem, grid, NW * 32, p, stream);
-}
-
 bool shapes_ok(int batch, int heads, int sq, int sk, int d) {
   return d > 0 && d <= 512 && d % 8 == 0 && sq > 0 && sk > 0 && batch > 0 && heads > 0;
 }
@@ -605,44 +273,17 @@ void set_common(Fp32Params& p, int heads, int sq, int sk, int d, float scale) {
   p.sq = sq;
   p.sk = sk;
   p.d = d;
-  p.scale = scale;
   p.scale_log2 = scale * kLog2e;
-}
-
-int make_bwd_params(Fp32Params& p, const void* q, const void* k, const void* v,
-                    const void* o, const void* dout, const void* lse, void* dvec, void* dq,
-                    void* dk, void* dv, int batch, int heads, int sq, int sk, int d,
-                    const long long* strides, float scale) {
-  if (!shapes_ok(batch, heads, sq, sk, d)) return kUnsupported;
-  p = Fp32Params{};
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<const float*>(o);
-  p.dout = static_cast<const float*>(dout);
-  p.lse = static_cast<float*>(const_cast<void*>(lse));
-  p.dvec = static_cast<float*>(dvec);
-  p.dq = static_cast<float*>(dq);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  for (int t = 0; t < 8; ++t)
-    for (int j = 0; j < 3; ++j) p.st[t][j] = strides[3 * t + j];
-  p.lse_sb = strides[24];
-  p.lse_sh = strides[25];
-  set_common(p, heads, sq, sk, d, scale);
-  return 0;
 }
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes).  Pointers are device pointers to
-// fp32 data with 16-byte aligned rows; strides are in elements, multiples of
-// 4.  Each returns a cudaError_t (0 = launched), or kUnsupported for a head
-// dim it has no instance for or an empty sequence.
-
-// The forward, the arguments of eti_flash_attention_wide_fwd: o in q's
-// layout, the LSE (null: not asked) with (batch, head) strides and row
-// stride 1.  Head dims in (128, 512], multiples of 8.
+// Plain C entry point (loaded with ctypes), the arguments of
+// eti_flash_attention_wide_fwd: pointers are device pointers to fp32 data
+// with 16-byte aligned rows, o in q's layout, the LSE (null: not asked) with
+// (batch, head) strides and row stride 1; strides are in elements, multiples
+// of 4.  Returns a cudaError_t (0 = launched), or kUnsupported for a head dim
+// outside (128, 512] or not a multiple of 8, or an empty sequence.
 extern "C" int eti_flash_attention_fp32_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int heads, int sq, int sk, int d,
@@ -669,42 +310,4 @@ extern "C" int eti_flash_attention_fp32_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 256) return launch_fwd<256, 4, 32, 128>(p, batch, s);
   return launch_fwd<512, 2, 16, 128>(p, batch, s);
-}
-
-// K4a and K4b, the arguments of eti_flash_attention_bwd_dq / _dkv
-// (flash_attention_bwd.cu): `strides` is a host array of 26 element strides,
-// (batch, head, row) for q, k, v, o, dO, dQ, dK, dV in that order, then the
-// lse's (batch, head) strides (its row stride is 1); D is contiguous (batch *
-// heads, sq).  Head dims up to 512, multiples of 8.
-
-// K4a: dQ, and D for K4b.  Unused pointers of the other kernel may be null.
-extern "C" int eti_flash_attention_fp32_bwd_dq(
-    const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* dvec, void* dq, int batch, int heads, int sq, int sk, int d,
-    const long long* strides, float scale, void* stream) {
-  Fp32Params p;
-  int err = make_bwd_params(p, q, k, v, o, dout, lse, dvec, dq, nullptr, nullptr, batch,
-                            heads, sq, sk, d, strides, scale);
-  if (err) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch_dq<64, 4, 64, 64>(p, batch, st);
-  if (d <= 128) return launch_dq<128, 4, 32, 128>(p, batch, st);
-  if (d <= 256) return launch_dq<256, 2, 32, 64>(p, batch, st);
-  return launch_dq<512, 1, 16, 64>(p, batch, st);
-}
-
-// K4b: dK and dV, reading the D that K4a wrote.
-extern "C" int eti_flash_attention_fp32_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* dvec, void* dk, void* dv, int batch, int heads, int sq, int sk, int d,
-    const long long* strides, float scale, void* stream) {
-  Fp32Params p;
-  int err = make_bwd_params(p, q, k, v, nullptr, dout, lse, const_cast<void*>(dvec),
-                            nullptr, dk, dv, batch, heads, sq, sk, d, strides, scale);
-  if (err) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch_dkv<64, 4, 32, 64>(p, batch, st);
-  if (d <= 128) return launch_dkv<128, 4, 16, 128>(p, batch, st);
-  if (d <= 256) return launch_dkv<256, 2, 32, 64>(p, batch, st);
-  return launch_dkv<512, 1, 16, 64>(p, batch, st);
 }

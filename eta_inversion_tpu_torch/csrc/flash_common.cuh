@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels (flash_attention.cu, flash_attention_narrow.cu,
 // flash_attention_wide.cu, flash_attention_bwd.cu, flash_attention_bwd_narrow.cu,
-// flash_attention_fp32.cu,
+// flash_attention_bwd_tf32.cu, flash_attention_fp32.cu,
 // flash_multihead.cu, crossk_attention.cu, geglu.cu):
 // the bf16 tensor-core product mma.sync m16n8k16 with fp32 accumulation (and
 // the TF32 m16n8k8), its
@@ -263,6 +263,27 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* o, long long ss, int r
       if (row0 + 8 < sq)
         *reinterpret_cast<uint32_t*>(o + (long long)(row0 + 8) * ss + col) =
             pack_f32(acc[i][2] * inv_l[1], acc[i][3] * inv_l[1]);
+    }
+  }
+}
+
+// acc * inv_l as fp32 to columns [c0, c0 + 8 NT) below d of rows row0 and
+// row0 + 8 of o (row stride ss), store_rows' fp32 counterpart (the TF32
+// kernels' outputs)
+template <int NT>
+__device__ __forceinline__ void store_rows(float* o, long long ss, int row0, int sq, int c0,
+                                           int d, int t4, const float (&acc)[NT][4],
+                                           const float (&inv_l)[2]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int col = c0 + i * 8 + t4 * 2;
+    if (col < d) {
+      if (row0 < sq)
+        *reinterpret_cast<float2*>(o + (long long)row0 * ss + col) =
+            make_float2(acc[i][0] * inv_l[0], acc[i][1] * inv_l[0]);
+      if (row0 + 8 < sq)
+        *reinterpret_cast<float2*>(o + (long long)(row0 + 8) * ss + col) =
+            make_float2(acc[i][2] * inv_l[1], acc[i][3] * inv_l[1]);
     }
   }
 }

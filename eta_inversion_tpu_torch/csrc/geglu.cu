@@ -134,12 +134,6 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[16][4], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(1));
 }
 
-// the consumer warps' release of a ring stage they have finished reading
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(empty);
-}
-
 // ta: A (rows x depth), boxes of kBM rows; tb: B, boxes of kGateCols (kGate:
 // W1, two boxes a stage) or kBN (kBias: W2) rows.  The accumulator of n8
 // tile i holds, for the thread's rows r and r + 8, columns 8 i + 2 t4 + {0, 1}

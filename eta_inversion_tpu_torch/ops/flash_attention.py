@@ -21,17 +21,19 @@ products run on the TF32 tensor cores with fp32 accumulation, whatever
 torch.backends.cuda.matmul.allow_tf32 says: forward calls up to head dim 128
 on the TF32 mode of the narrow kernel, after a prep kernel that writes V
 transposed (`flash_attention_tf32_prep`); the forward above head dim 128 (K3
-at the VAE's d = 512) and the backward (K4a / K4b) at every head dim on
-csrc/flash_attention_fp32.cu (mma.sync TF32).  `fwd_library` /
-`bwd_library` are the routing rule, by head dim and dtype; any other dtype
-raises.
+at the VAE's d = 512) on csrc/flash_attention_fp32.cu (mma.sync TF32); the
+backward (K4a / K4b) after a prep kernel that writes K, Q and dO transposed
+and D (`flash_attention_bwd_tf32_prep`), up to head dim 128 on the TF32 mode
+of the narrow backward and above it on csrc/flash_attention_bwd_tf32.cu
+(materialized scores and TF32 GEMMs).  `fwd_library` / `bwd_library` are
+the routing rule, by head dim and dtype; any other dtype raises.
 
 The two Pallas backward kernels are two CUDA kernels behind
 ``flash_attention_bwd_dq`` (K4a) and ``flash_attention_bwd_dkv`` (K4b): up to
 head dim 128 (the UNet's self-attention, nti's gradients) on
 csrc/flash_attention_bwd_narrow.cu (wgmma, every tile staged by TMA), above it
 (the VAE mid-block's d = 512) on csrc/flash_attention_bwd.cu (mma.sync, the
-accumulators in shared memory), both bf16; fp32 on csrc/flash_attention_fp32.cu;
+accumulators in shared memory), both bf16; fp32 on the TF32 routes above;
 `bwd_library` is the routing rule.
 When autograd needs a gradient through a
 forward wrapper on the card, the wrapper goes through `_FlashAttention` (the
@@ -94,11 +96,17 @@ LAUNCHES: Dict[str, int] = {
     # the narrow kernel's TF32 mode, and its prep kernel's launches
     "flash_attention_narrow_tf32": 0,
     "flash_attention_tf32_prep": 0,
-    # of the forward (K3) and K4a / K4b launches, those on
-    # flash_attention_fp32.cu (fp32 forward above head dim 128, fp32 backward)
+    # of the forward (K3) launches, those on flash_attention_fp32.cu (fp32
+    # above head dim 128)
     "flash_attention_fwd_fp32": 0,
-    "flash_attention_bwd_dq_fp32": 0,
-    "flash_attention_bwd_dkv_fp32": 0,
+    # of the K4a / K4b launches, the fp32 ones: on the narrow backward's TF32
+    # mode (head dims up to 128) and on flash_attention_bwd_tf32.cu (above
+    # it), and the launches of their prep kernel
+    "flash_attention_bwd_dq_tf32": 0,
+    "flash_attention_bwd_dkv_tf32": 0,
+    "flash_attention_bwd_dq_tf32_wide": 0,
+    "flash_attention_bwd_dkv_tf32_wide": 0,
+    "flash_attention_bwd_tf32_prep": 0,
     "crossk_attention": 0,
     "flash_attention_bhsd_tiled": 0,
     "flash_attention_bhsd_tf32": 0,
@@ -126,20 +134,22 @@ _LIBS = (("eti_flash_attention", ("flash_attention.cu",)),
          ("eti_flash_attention_wide", ("flash_attention_wide.cu",)),
          ("eti_flash_attention_narrow", ("flash_attention_narrow.cu",)),
          ("eti_flash_attention_bwd_narrow", ("flash_attention_bwd_narrow.cu",)),
-         ("eti_flash_attention_fp32", ("flash_attention_fp32.cu",)))
+         ("eti_flash_attention_fp32", ("flash_attention_fp32.cu",)),
+         ("eti_flash_attention_bwd_tf32", ("flash_attention_bwd_tf32.cu",)))
 _loaded: Optional[Tuple[ctypes.CDLL, ...]] = None
 
 
 def build_kernels() -> Tuple[ctypes.CDLL, ...]:
     """Build (at first use, one nvcc per source, side by side) and load the
     tiled forward, wide backward, short-K, multi-head, wide forward, narrow
-    forward, narrow backward and fp32 attention kernel libraries, in
-    `_LIBS`' order."""
+    forward, narrow backward, fp32 forward and TF32 wide backward attention
+    kernel libraries, in `_LIBS`' order."""
     global _loaded
     if _loaded is None:
         from .cuda_build import load_libraries
 
-        fwd, bwd, crossk, multihead, wide, narrow, bwd_narrow, fp32 = load_libraries(_LIBS)
+        libs = load_libraries(_LIBS)
+        fwd, bwd, crossk, multihead, wide, narrow, bwd_narrow, fp32, bwd_tf32 = libs
         fn = fwd.eti_flash_attention_fwd
         fn.argtypes = [_ptr] * 5 + [_i32] * 7 + [_i64] * 14 + [ctypes.c_float, _ptr]
         fn.restype = _i32
@@ -153,20 +163,35 @@ def build_kernels() -> Tuple[ctypes.CDLL, ...]:
         fn = narrow.eti_flash_attention_tf32_prep
         fn.argtypes = [_ptr] * 6 + [_i32] * 7 + [_i64] * 15 + [_ptr]
         fn.restype = _i32
+        strides = ctypes.POINTER(_i64)
         for fn in (bwd.eti_flash_attention_bwd_dq, bwd.eti_flash_attention_bwd_dkv,
                    bwd_narrow.eti_flash_attention_bwd_narrow_dq,
-                   bwd_narrow.eti_flash_attention_bwd_narrow_dkv,
-                   fp32.eti_flash_attention_fp32_bwd_dq, fp32.eti_flash_attention_fp32_bwd_dkv):
-            fn.argtypes = [_ptr] * 8 + [_i32] * 5 + [ctypes.POINTER(_i64), ctypes.c_float,
-                                                     _ptr]
+                   bwd_narrow.eti_flash_attention_bwd_narrow_dkv):
+            fn.argtypes = [_ptr] * 8 + [_i32] * 5 + [strides, ctypes.c_float, _ptr]
             fn.restype = _i32
+        fn = bwd_narrow.eti_flash_attention_bwd_narrow_tf32_dq
+        fn.argtypes = [_ptr] * 8 + [_i32] * 6 + [strides, ctypes.c_float, _ptr]
+        fn.restype = _i32
+        fn = bwd_narrow.eti_flash_attention_bwd_narrow_tf32_dkv
+        fn.argtypes = [_ptr] * 10 + [_i32] * 6 + [strides, ctypes.c_float, _ptr]
+        fn.restype = _i32
+        fn = bwd_narrow.eti_flash_attention_bwd_tf32_prep
+        fn.argtypes = [_ptr] * 8 + [_i32] * 7 + [strides, _ptr]
+        fn.restype = _i32
+        fn = bwd_tf32.eti_flash_attention_bwd_tf32_scores
+        fn.argtypes = [_i32] + [_ptr] * 8 + [_i32] * 8 + [strides, ctypes.c_float, _ptr]
+        fn.restype = _i32
+        fn = bwd_tf32.eti_flash_attention_bwd_tf32_gemm
+        fn.argtypes = [_i32] + [_ptr] * 6 + [_i32] * 7 + [strides, ctypes.c_float,
+                                                           ctypes.c_float, _i32, _ptr]
+        fn.restype = _i32
         fn = crossk.eti_crossk_attention
         fn.argtypes = [_ptr] * 4 + [_i32] * 4 + [_i64] * 8 + [ctypes.c_float, _ptr]
         fn.restype = _i32
         fn = multihead.eti_flash_multihead
         fn.argtypes = [_ptr] * 4 + [_i32] * 8 + [_i64] * 8 + [ctypes.c_float, _ptr]
         fn.restype = _i32
-        _loaded = fwd, bwd, crossk, multihead, wide, narrow, bwd_narrow, fp32
+        _loaded = libs
     return _loaded
 
 
@@ -175,11 +200,11 @@ def build_kernels() -> Tuple[ctypes.CDLL, ...]:
 # flash_attention_narrow.cu, bf16 or fp32 (its TF32 mode), with a positive
 # scale (it folds the scale into the exponent's FFMA), and d in (128, 512]
 # on flash_attention_wide.cu, bf16 (Q and two K/V stages take 192 KB at d =
-# 512), or flash_attention_fp32.cu, fp32; the backward takes bf16, d <= 128
-# on flash_attention_bwd_narrow.cu and d in (128, 512] on
-# flash_attention_bwd.cu, which keeps the dQ / dK + dV rows in shared memory
-# (194 KB for dQ and 226 KB for dK + dV at d = 512 of the block's 227 KB),
-# and fp32 at every d on flash_attention_fp32.cu.  The microbenchmarks' tiles,
+# 512), or flash_attention_fp32.cu, fp32; the backward takes d <= 128 on
+# flash_attention_bwd_narrow.cu (bf16, or fp32 on its TF32 mode) and d in
+# (128, 512] on flash_attention_bwd.cu, bf16, which keeps the dQ / dK + dV
+# rows in shared memory (194 KB for dQ and 226 KB for dK + dV at d = 512 of
+# the block's 227 KB), or flash_attention_bwd_tf32.cu, fp32.  The microbenchmarks' tiles,
 # the TF32 mode's bf16 operands and the multi-head kernel exist only where
 # the microbenchmarks run them; their C entry points say which arguments
 # they take (UNSUPPORTED otherwise).
@@ -277,7 +302,7 @@ TILED_LIB, NARROW_LIB, WIDE_LIB = ("eti_flash_attention", "eti_flash_attention_n
 # the narrow kernel's TF32 mode, a route of NARROW_LIB's library
 NARROW_TF32 = "eti_flash_attention_narrow (tf32)"
 # fp32 operands where the TF32 mode does not reach: the forward above head
-# dim 128 and the backward at every head dim (names in _LIBS)
+# dim 128 (names in _LIBS)
 FP32_LIB = "eti_flash_attention_fp32"
 
 
@@ -317,21 +342,26 @@ def fwd_library(d: int, tf32: bool = False, tile: Optional[Tuple[int, int]] = No
 
 # the backward kernels' libraries (names in _LIBS)
 BWD_LIB, BWD_NARROW_LIB = "eti_flash_attention_bwd", "eti_flash_attention_bwd_narrow"
+# fp32 operands: the narrow backward's TF32 mode (a route of BWD_NARROW_LIB's
+# library) and, above head dim 128, the materialized-score TF32 kernels
+BWD_NARROW_TF32 = "eti_flash_attention_bwd_narrow (tf32)"
+BWD_TF32_LIB = "eti_flash_attention_bwd_tf32"
+BWD_TF32_ROUTES = (BWD_NARROW_TF32, BWD_TF32_LIB)
 
 
 def bwd_library(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The route a backward call (K4a and K4b) of head dim `d` with operands
-    of `dtype` takes on the card: bf16 to the wgmma kernels of
-    flash_attention_bwd_narrow.cu up to NARROW_MAX_HEAD_DIM and to
-    flash_attention_bwd.cu above it, up to KERNEL_MAX_HEAD_DIM; fp32 to
-    flash_attention_fp32.cu at every head dim.  ValueError beyond
+    of `dtype` takes on the card: up to NARROW_MAX_HEAD_DIM the wgmma kernels
+    of flash_attention_bwd_narrow.cu, bf16 or (fp32) their TF32 mode; above
+    it, up to KERNEL_MAX_HEAD_DIM, flash_attention_bwd.cu for bf16 and
+    flash_attention_bwd_tf32.cu for fp32.  ValueError beyond
     KERNEL_MAX_HEAD_DIM or for another dtype."""
     if d > KERNEL_MAX_HEAD_DIM:
         raise ValueError(f"head dim {d}: the backward kernels take multiples of 8 up to "
                          f"{KERNEL_MAX_HEAD_DIM}")
     _check_dtype(dtype)
     if dtype == torch.float32:
-        return FP32_LIB
+        return BWD_NARROW_TF32 if d <= NARROW_MAX_HEAD_DIM else BWD_TF32_LIB
     return BWD_NARROW_LIB if d <= NARROW_MAX_HEAD_DIM else BWD_LIB
 
 
@@ -445,18 +475,26 @@ def round_tf32_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), rounded, x.float())
 
 
+def tf32_transpose_plain(x, heads: Optional[int] = None):
+    """x (flat (BH, S, d), or packed with `heads`) as the TF32 kernels' B
+    operand: fp32 (BH, d, Spad), Spad = S rounded up to 8, each 8-element
+    group along S in TF32_KEY_ORDER, zero past S, rounded to TF32."""
+    xf = x if heads is None else _packed_to_flat(x, heads)
+    bh, s, d = xf.shape
+    spad = -(-s // 8) * 8
+    xt = torch.zeros((bh, spad, d), dtype=torch.float32, device=x.device)
+    xt[:, :s] = xf.float()
+    order = torch.tensor(TF32_KEY_ORDER, device=x.device)
+    xt = xt.view(bh, spad // 8, 8, d)[:, :, order].reshape(bh, spad, d)
+    return round_tf32_plain(xt.transpose(1, 2).contiguous())
+
+
 def tf32_prep_plain(q, k, v, heads: Optional[int] = None):
     """The prep kernel's function: (q, k as fp32, V^T) with V^T fp32 (BH, d,
     Spad), Spad = Sk rounded up to 8, each 8-key group in TF32_KEY_ORDER,
-    zero past Sk, rounded to TF32.  fp32 q and k come back as they are."""
-    vf = v if heads is None else _packed_to_flat(v, heads)
-    bh, sk, d = vf.shape
-    spad = -(-sk // 8) * 8
-    vt = torch.zeros((bh, spad, d), dtype=torch.float32, device=v.device)
-    vt[:, :sk] = vf.float()
-    order = torch.tensor(TF32_KEY_ORDER, device=v.device)
-    vt = vt.view(bh, spad // 8, 8, d)[:, :, order].reshape(bh, spad, d)
-    vt = round_tf32_plain(vt.transpose(1, 2).contiguous())
+    zero past Sk, rounded to TF32 (`tf32_transpose_plain`).  fp32 q and k
+    come back as they are."""
+    vt = tf32_transpose_plain(v, heads)
     if q.dtype == torch.float32:
         return q, k, vt
     return q.float(), k.float(), vt
@@ -725,11 +763,11 @@ def flash_attention_multihead(q, k, v, scale: float, heads: int, operands: str =
 
 
 def _bwd_prepare(q, k, v, lse, do, heads: Optional[int], lib: str):
-    """Checks shared by K4a and K4b on the library `lib` (fp32 operands on
-    FP32_LIB, bf16 on the others); returns (batch, heads, d, sq, sk)."""
+    """Checks shared by K4a and K4b on the route `lib` (fp32 operands on the
+    TF32 routes, bf16 on the others); returns (batch, heads, d, sq, sk)."""
     batch, h, d = _layout(q, heads)
     _check_head_dim(d)
-    dtypes = (torch.float32,) if lib == FP32_LIB else BF16
+    dtypes = (torch.float32,) if lib in BWD_TF32_ROUTES else BF16
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_operand(name, x, 3, dtypes)
     if k.shape != v.shape or do.shape != q.shape or k.shape[0] != batch \
@@ -742,13 +780,13 @@ def _bwd_prepare(q, k, v, lse, do, heads: Optional[int], lib: str):
     return batch, h, d, sq, sk
 
 
-def _bwd_strides(xs, heads, d):
+def _bwd_strides(xs, heads, d, lse_st=(0, 0)):
     """The kernels' 26 strides: (batch, head, row) of q, k, v, o, dO, dQ, dK,
     dV (None: unused), then the lse's (batch, head)."""
     flat = []
     for x in xs:
         flat += [0, 0, 0] if x is None else list(_strides(x, heads, d))
-    return (ctypes.c_longlong * 26)(*flat)
+    return (ctypes.c_longlong * 26)(*flat, *lse_st)
 
 
 def _bwd_route(q, heads: Optional[int]) -> Optional[str]:
@@ -760,25 +798,231 @@ def _bwd_route(q, heads: Optional[int]) -> Optional[str]:
 
 
 def _bwd_fn(lib: str, which: str):
-    """The C entry point `which` ("dq" or "dkv") of the backward library
-    `lib`."""
+    """The C entry point `which` ("dq" or "dkv") of the bf16 backward
+    library `lib`."""
     libs = build_kernels()
     if lib == BWD_NARROW_LIB:
         return getattr(libs[6], f"eti_flash_attention_bwd_narrow_{which}")
-    if lib == FP32_LIB:
-        return getattr(libs[7], f"eti_flash_attention_fp32_bwd_{which}")
     return getattr(libs[1], f"eti_flash_attention_bwd_{which}")
 
 
-# of a backward library's launches, the LAUNCHES key that counts them apart
-_BWD_SUBSET = {BWD_LIB: "wide", FP32_LIB: "fp32"}
+# of a backward route's launches, the LAUNCHES key that counts them apart
+_BWD_SUBSET = {BWD_LIB: "wide", BWD_NARROW_TF32: "tf32", BWD_TF32_LIB: "tf32_wide"}
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do, scale: float, heads: Optional[int] = None):
+def _count_bwd(which: str, lib: str) -> None:
+    LAUNCHES[f"flash_attention_bwd_{which}"] += 1
+    if lib in _BWD_SUBSET:
+        LAUNCHES[f"flash_attention_bwd_{which}_{_BWD_SUBSET[lib]}"] += 1
+
+
+def bwd_tf32_prep_plain(q, k, do, o=None, heads: Optional[int] = None):
+    """The TF32 backward's prep kernel's function: (K^T (BH, d, Skpad), Q^T,
+    dO^T (BH, d, Sqpad), D (BH, Sq) or None without `o`), the transposes as
+    `tf32_transpose_plain` writes them (each 8-element group along S in
+    TF32_KEY_ORDER, zero past S, rounded to TF32), D = rowsum(dO o O) in
+    fp32."""
+    dvec = None
+    if o is not None:
+        f = (lambda x: x) if heads is None else (lambda x: _packed_to_flat(x, heads))
+        dvec = (f(do).float() * f(o).float()).sum(-1)
+    return (tf32_transpose_plain(k, heads), tf32_transpose_plain(q, heads),
+            tf32_transpose_plain(do, heads), dvec)
+
+
+def flash_attention_bwd_tf32_prep(q, k, do, o=None, heads: Optional[int] = None,
+                                  kt: bool = True, qdot: bool = True):
+    """The fp32 backward's operands from fp32 q, k, dO (flat, or packed with
+    `heads`): (K^T when `kt`, Q^T and dO^T when `qdot`, D when `o` is given;
+    None for the others), as `bwd_tf32_prep_plain` gives them.  On the card
+    one launch of the prep kernel (csrc/flash_attention_bwd_narrow.cu)
+    writes them all, for the backward's TF32 routes at every head dim (a
+    multiple of 8 up to 512); it raises for what it does not take.  A CPU
+    tensor takes the plain version."""
+    if q.device.type == "cpu":
+        out = bwd_tf32_prep_plain(q, k, do, o, heads)
+        return (out[0] if kt else None, out[1] if qdot else None,
+                out[2] if qdot else None, out[3])
+    batch, h, d = _layout(q, heads)
+    _check_head_dim(d)
+    f32 = (torch.float32,)
+    for name, x in (("q", q), ("k", k), ("do", do)) + ((("o", o),) if o is not None else ()):
+        _check_operand(name, x, 3, f32)
+    if do.shape != q.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] \
+            or (o is not None and o.shape != q.shape):
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"do{tuple(do.shape)} heads={heads}")
+    sq, sk = q.shape[1], k.shape[1]
+    _check_grid(batch, h, sq, sk)
+    sqpad, skpad = -(-sq // 8) * 8, -(-sk // 8) * 8
+    new = lambda n: torch.empty((batch * h, d, n), dtype=torch.float32, device=q.device)  # noqa: E731
+    kt_ = new(skpad) if kt else None
+    qt_, dot_ = (new(sqpad), new(sqpad)) if qdot else (None, None)
+    dvec = torch.empty((batch * h, sq), dtype=torch.float32, device=q.device) \
+        if o is not None else None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    err = build_kernels()[6].eti_flash_attention_bwd_tf32_prep(
+        q.data_ptr(), k.data_ptr(), do.data_ptr(), ptr(o), ptr(kt_), ptr(qt_), ptr(dot_),
+        ptr(dvec), batch, h, sq, sk, d, sqpad, skpad,
+        _bwd_strides((q, k, None, o, do, None, None, None), heads, d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        _launched(err, "TF32 backward prep kernel", f"head dim {d}")
+    LAUNCHES["flash_attention_bwd_tf32_prep"] += 1
+    return kt_, qt_, dot_, dvec
+
+
+# the fp32 scratch a call of flash_attention_bwd_tf32.cu may hold: the
+# scores of a stripe of queries (K4a's dS, K4b's P^T and dS^T)
+BWD_TF32_SCRATCH_BYTES = 128 << 20
+# the kernels' score tile: stripes are a multiple of it
+BWD_TF32_TILE = 128
+
+
+def bwd_tf32_stripe(sq: int, sk: int, bh: int, arrays: int) -> int:
+    """Queries a stripe of flash_attention_bwd_tf32.cu holds: `arrays` fp32
+    (BH, stripe, Sk) score arrays within BWD_TF32_SCRATCH_BYTES, a multiple
+    of BWD_TF32_TILE (at least one), at most Sq."""
+    per_query = bh * (-(-sk // 8) * 8) * 4 * arrays
+    stripe = BWD_TF32_SCRATCH_BYTES // per_query // BWD_TF32_TILE * BWD_TF32_TILE
+    return min(max(stripe, BWD_TF32_TILE), sq)
+
+
+def flash_attention_bwd_striped_plain(q, k, v, o, lse, do, scale: float, stripe: int):
+    """The arithmetic of flash_attention_bwd_tf32.cu in plain fp32 over flat
+    (BH, S, D) operands: dQ a stripe of `stripe` query rows at a time, dK
+    and dV the stripes' contributions summed in stripe order."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    bh, sq, _ = qf.shape
+    dvec = (dof * o.float()).sum(-1)
+    lse = lse.reshape(bh, sq)
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for start in range(0, sq, stripe):
+        rows = slice(start, start + stripe)
+        s = torch.einsum("bqd,bkd->bqk", qf[:, rows], kf) * scale
+        p = torch.exp(s - lse[:, rows, None])
+        dp = torch.einsum("bqd,bkd->bqk", dof[:, rows], vf)
+        ds = p * (dp - dvec[:, rows, None])
+        dq[:, rows] = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+        dv = dv + torch.einsum("bqk,bqd->bkd", p, dof[:, rows])
+        dk = dk + torch.einsum("bqk,bqd->bkd", ds, qf[:, rows]) * scale
+    return dq, dk, dv
+
+
+def _check_prep(name: str, x, rows: int, d: int, n: int) -> None:
+    """A transposed operand handed in by flash_attention_bwd: (rows, d, n)
+    contiguous fp32 on the card."""
+    if x is None or not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous() \
+            or tuple(x.shape) != (rows, d, n):
+        raise ValueError(f"{name}: expected a contiguous CUDA fp32 tensor of "
+                         f"{(rows, d, n)}, got {None if x is None else tuple(x.shape)}")
+
+
+def _bwd_dq_tf32(q, k, v, o, lse, do, scale, heads, lib, prep):
+    """K4a on the TF32 routes: the prep (K^T and D; given by
+    flash_attention_bwd as `prep`), then the narrow TF32 kernel, or above
+    head dim 128 a scores kernel and a GEMM per query stripe."""
+    batch, h, d, sq, sk = _bwd_prepare(q, k, v, lse, do, heads, lib)
+    _check_operand("o", o, 3, (torch.float32,))
+    if o.shape != q.shape:
+        raise ValueError(f"o{tuple(o.shape)} does not match q{tuple(q.shape)}")
+    kt, _, _, dvec = prep if prep is not None else flash_attention_bwd_tf32_prep(
+        q, k, do, o, heads, qdot=False)
+    skpad = -(-sk // 8) * 8
+    _check_prep("K^T", kt, batch * h, d, skpad)
+    _check_rows("dvec", dvec, batch * h, sq)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = _bwd_strides((q, k, v, None, do, dq, None, None), heads, d, (h * sq, sq))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    libs = build_kernels()
+    what = f"flash attention dQ kernel ({lib})"
+    args = f"head dim {d}, scale {scale} with strides {[x.stride() for x in (q, k, v)]}"
+    if lib == BWD_NARROW_TF32:
+        err = libs[6].eti_flash_attention_bwd_narrow_tf32_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), kt.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), batch, h, sq, sk, d, skpad,
+            strides, float(scale), stream)
+        if err:
+            _launched(err, what, args)
+    else:
+        stripe = bwd_tf32_stripe(sq, sk, batch * h, 1)
+        ds = torch.empty((batch * h, stripe, skpad), dtype=torch.float32, device=q.device)
+        c_st = (ctypes.c_longlong * 6)(*_strides(dq, heads, d), 0, 0, 0)
+        for start in range(0, sq, stripe):
+            count = min(stripe, sq - start)
+            err = libs[8].eti_flash_attention_bwd_tf32_scores(
+                0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dvec.data_ptr(), ds.data_ptr(), None, batch, h, sq, sk, d, start, count, skpad,
+                strides, float(scale), stream)
+            if not err:
+                err = libs[8].eti_flash_attention_bwd_tf32_gemm(
+                    1, ds.data_ptr(), kt.data_ptr(),
+                    dq.data_ptr() + start * dq.stride(1) * dq.element_size(), None, None, None,
+                    batch, h, count, d, skpad, skpad, 0, c_st, float(scale), 0.0, 0, stream)
+            if err:
+                _launched(err, what, args)
+    _count_bwd("dq", lib)
+    return dq, dvec
+
+
+def _bwd_dkv_tf32(q, k, v, lse, do, dvec, scale, heads, lib, prep):
+    """K4b on the TF32 routes: the prep (Q^T and dO^T; given by
+    flash_attention_bwd as `prep`), then the narrow TF32 kernel, or above
+    head dim 128 a scores kernel and one launch of the GEMM (dV and dK) per
+    query stripe, each stripe added to the last."""
+    batch, h, d, sq, sk = _bwd_prepare(q, k, v, lse, do, heads, lib)
+    _check_rows("dvec", dvec, batch * h, sq)
+    _, qt, dot, _ = prep if prep is not None else flash_attention_bwd_tf32_prep(
+        q, k, do, None, heads, kt=False)
+    sqpad = -(-sq // 8) * 8
+    _check_prep("Q^T", qt, batch * h, d, sqpad)
+    _check_prep("dO^T", dot, batch * h, d, sqpad)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    strides = _bwd_strides((q, k, v, None, do, None, dk, dv), heads, d, (h * sq, sq))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    libs = build_kernels()
+    what = f"flash attention dK/dV kernel ({lib})"
+    args = f"head dim {d}, scale {scale} with strides {[x.stride() for x in (q, k, v)]}"
+    if lib == BWD_NARROW_TF32:
+        err = libs[6].eti_flash_attention_bwd_narrow_tf32_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), qt.data_ptr(),
+            dot.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            batch, h, sq, sk, d, sqpad, strides, float(scale), stream)
+        if err:
+            _launched(err, what, args)
+    else:
+        stripe = bwd_tf32_stripe(sq, sk, batch * h, 2)
+        pitch = -(-stripe // 8) * 8
+        pt, dst = (torch.empty((batch * h, sk, pitch), dtype=torch.float32, device=q.device)
+                   for _ in range(2))
+        c_st = (ctypes.c_longlong * 6)(*_strides(dv, heads, d), *_strides(dk, heads, d))
+        for start in range(0, sq, stripe):
+            count = min(stripe, sq - start)
+            width = -(-count // 8) * 8
+            err = libs[8].eti_flash_attention_bwd_tf32_scores(
+                1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dvec.data_ptr(), pt.data_ptr(), dst.data_ptr(), batch, h, sq, sk, d, start,
+                count, width, strides, float(scale), stream)
+            if not err:
+                err = libs[8].eti_flash_attention_bwd_tf32_gemm(
+                    2, pt.data_ptr(), dot.data_ptr(), dv.data_ptr(), dst.data_ptr(),
+                    qt.data_ptr(), dk.data_ptr(), batch, h, sk, d, width, sqpad, start, c_st,
+                    1.0, float(scale), int(start > 0), stream)
+            if err:
+                _launched(err, what, args)
+    _count_bwd("dkv", lib)
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, scale: float, heads: Optional[int] = None,
+                           prep=None):
     """K4a: (dQ, D) -- dQ in q's layout, D = rowsum(dO o O) as (BH, S) fp32
     for K4b.  Flat (BH, S, D) operands with a (BH, 1, S) LSE when `heads` is
     None, packed (B, S, H*D) with a (B, H, S) LSE otherwise (the forward's
-    LSE layouts)."""
+    LSE layouts).  fp32 runs on the TF32 routes after the prep kernel
+    (`prep`: its outputs, when the caller launched it)."""
     lib = _bwd_route(q, heads)
     if lib is None:
         if heads is None:
@@ -786,29 +1030,28 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, scale: float, heads: Optional[in
         f = [_packed_to_flat(x, heads) for x in (q, k, v, o, do)]
         dq, dvec = flash_attention_bwd_dq_plain(*f[:4], lse, f[4], scale)
         return _flat_to_packed(dq, q.shape[0], heads), dvec
+    if lib in BWD_TF32_ROUTES:
+        return _bwd_dq_tf32(q, k, v, o, lse, do, scale, heads, lib, prep)
     batch, h, d, sq, sk = _bwd_prepare(q, k, v, lse, do, heads, lib)
     _check_operand("o", o, 3, (q.dtype,))
     if o.shape != q.shape:
         raise ValueError(f"o{tuple(o.shape)} does not match q{tuple(q.shape)}")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dvec = torch.empty((batch * h, sq), dtype=torch.float32, device=q.device)
-    strides = _bwd_strides((q, k, v, o, do, dq, None, None), heads, d)
-    strides[24], strides[25] = h * sq, sq
+    strides = _bwd_strides((q, k, v, o, do, dq, None, None), heads, d, (h * sq, sq))
     err = _bwd_fn(lib, "dq")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
              lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), batch, h, sq, sk, d,
              strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _launched(err, f"flash attention dQ kernel ({lib})",
                   f"head dim {d}, scale {scale} with strides {[x.stride() for x in (q, k, v)]}")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
-    if lib in _BWD_SUBSET:
-        LAUNCHES[f"flash_attention_bwd_dq_{_BWD_SUBSET[lib]}"] += 1
+    _count_bwd("dq", lib)
     return dq, dvec
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, do, dvec, scale: float,
-                            heads: Optional[int] = None):
-    """K4b: (dK, dV) in k's layout, given K4a's D; layouts as
+                            heads: Optional[int] = None, prep=None):
+    """K4b: (dK, dV) in k's layout, given K4a's D; layouts and `prep` as
     flash_attention_bwd_dq."""
     lib = _bwd_route(q, heads)
     if lib is None:
@@ -817,28 +1060,31 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, dvec, scale: float,
         f = [_packed_to_flat(x, heads) for x in (q, k, v, do)]
         dk, dv = flash_attention_bwd_dkv_plain(*f[:3], lse, f[3], dvec, scale)
         return _flat_to_packed(dk, q.shape[0], heads), _flat_to_packed(dv, q.shape[0], heads)
+    if lib in BWD_TF32_ROUTES:
+        return _bwd_dkv_tf32(q, k, v, lse, do, dvec, scale, heads, lib, prep)
     batch, h, d, sq, sk = _bwd_prepare(q, k, v, lse, do, heads, lib)
     _check_rows("dvec", dvec, batch * h, sq)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    strides = _bwd_strides((q, k, v, None, do, None, dk, dv), heads, d)
-    strides[24], strides[25] = h * sq, sq
+    strides = _bwd_strides((q, k, v, None, do, None, dk, dv), heads, d, (h * sq, sq))
     err = _bwd_fn(lib, "dkv")(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
              dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch, h, sq, sk, d,
              strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _launched(err, f"flash attention dK/dV kernel ({lib})",
                   f"head dim {d}, scale {scale} with strides {[x.stride() for x in (q, k, v)]}")
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
-    if lib in _BWD_SUBSET:
-        LAUNCHES[f"flash_attention_bwd_dkv_{_BWD_SUBSET[lib]}"] += 1
+    _count_bwd("dkv", lib)
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float, heads: Optional[int] = None):
-    """(dQ, dK, dV): K4a, then K4b on the D it wrote (`_flash_bwd_impl`)."""
-    dq, dvec = flash_attention_bwd_dq(q, k, v, o, lse, do, scale, heads)
-    return (dq, *flash_attention_bwd_dkv(q, k, v, lse, do, dvec, scale, heads))
+    """(dQ, dK, dV): K4a, then K4b on the D it wrote (`_flash_bwd_impl`).
+    On the TF32 routes one launch of the prep kernel serves both."""
+    prep = None
+    if _bwd_route(q, heads) in BWD_TF32_ROUTES:
+        prep = flash_attention_bwd_tf32_prep(q, k, do, o, heads)
+    dq, dvec = flash_attention_bwd_dq(q, k, v, o, lse, do, scale, heads, prep)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, lse, do, dvec, scale, heads, prep))
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@ forward kernels (K1-K3: the narrow wgmma kernel up to head dim 128, the wide
 one above) with their LSE, the narrow kernel's TF32 mode (fp32 operands) and
 its prep kernel, the backward kernels (K4a dQ, K4b dK/dV: the narrow wgmma
 kernels up to head dim 128, the mma.sync ones above it up to 512), the fp32
-kernels of flash_attention_fp32.cu (the forward above head dim 128, the
-backward at every head dim), autograd through the dispatchers, the short-K
+forward above head dim 128 (flash_attention_fp32.cu), the fp32 backward's
+TF32 routes (the narrow backward's TF32 mode up to 128,
+flash_attention_bwd_tf32.cu above) and their prep kernel, autograd through
+the dispatchers, the short-K
 cross-attention kernel (K5), the fused GEGLU kernel (K6) with its
 autograd.Function, and the microbenchmarks' kernels: the tiled flat kernel
 and the TF32 mode (S1, S3) and the multi-head kernel (S4).
@@ -730,12 +732,13 @@ def test_cuda_tf32_prep_matches_plain(packed, dtype, sk):
 @pytest.mark.parametrize("d", [40, 80])
 def test_cuda_fp32_autograd_through_the_tf32_forward(packed, d, monkeypatch):
     """Gradients of sum(sin(o)) in fp32 through `_FlashAttention`: the
-    forward (with its LSE) on the TF32 mode, the backward on
-    flash_attention_fp32.cu from that LSE, each counted, against the plain
-    path's autograd on the same inputs; 2% of the largest plain gradient."""
+    forward (with its LSE) on the TF32 mode, the backward on the narrow
+    backward's TF32 mode from that LSE after one prep launch, each counted,
+    against the plain path's autograd on the same inputs; 2% of the largest
+    plain gradient."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    assert tfa.bwd_library(d, torch.float32) == tfa.FP32_LIB
+    assert tfa.bwd_library(d, torch.float32) == tfa.BWD_NARROW_TF32
     b, h, s = 1, 4, 1032
     shape = (b, s, h * d) if packed else (b, h, s, d)
     base = _fp32_inputs(shape, seed=41 + d)
@@ -752,7 +755,8 @@ def test_cuda_fp32_autograd_through_the_tf32_forward(packed, d, monkeypatch):
     assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
         fwd: 1, "flash_attention_narrow_tf32": 1, "flash_attention_tf32_prep": 1,
         "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
-        "flash_attention_bwd_dq_fp32": 1, "flash_attention_bwd_dkv_fp32": 1}
+        "flash_attention_bwd_dq_tf32": 1, "flash_attention_bwd_dkv_tf32": 1,
+        "flash_attention_bwd_tf32_prep": 1}
     monkeypatch.setattr(tfa, "_kernel_eligible", lambda *a, **k: False)
     want = grads()
     for g, w, name in zip(got, want, "qkv"):
@@ -818,13 +822,16 @@ def _fp32_bwd_case(kind, b, sq, sk, h, d, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,b,s,h", [("packed", 1, 1032, 2), ("flat", 2, 1032, 1)])
-@pytest.mark.parametrize("d", [8, 16, 40, 64, 72, 80, 120, 128, 136, 160, 256, 512])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 104, 112, 120, 128,
+                               136, 160, 256, 512])
 def test_cuda_fp32_backward_matches_plain(kind, b, s, h, d):
-    """K4a and K4b on flash_attention_fp32.cu at each of its head-dim
-    instances and their edges, ragged S, packed and flat: dQ, dK, dV within
-    2% of the fp32 plain backward's largest magnitude from the same LSE, D
-    within 1e-4 of its largest; each launch counted on the wrapper's key and
-    the fp32 one."""
+    """K4a and K4b on the TF32 routes (the narrow backward's TF32 mode up to
+    head dim 128, flash_attention_bwd_tf32.cu above) at every instance of
+    the narrow one and the other's edges, ragged S, packed and flat, each
+    wrapper called alone (so each launches the prep kernel): dQ, dK, dV
+    within 2% of the fp32 plain backward's largest magnitude from the same
+    LSE, D within 1e-4 of its largest; each launch counted on the wrapper's
+    key and its route's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     args, want, f = _fp32_bwd_case(kind, b, s, s, h, d, seed=d)
@@ -833,9 +840,11 @@ def test_cuda_fp32_backward_matches_plain(kind, b, s, h, d):
     dq, dvec = tfa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, heads)
     dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, lse, do, dvec, scale, heads)
     torch.cuda.synchronize()
+    sub = "tf32" if d <= tfa.NARROW_MAX_HEAD_DIM else "tf32_wide"
     assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
         "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
-        "flash_attention_bwd_dq_fp32": 1, "flash_attention_bwd_dkv_fp32": 1}
+        f"flash_attention_bwd_dq_{sub}": 1, f"flash_attention_bwd_dkv_{sub}": 1,
+        "flash_attention_bwd_tf32_prep": 2}
     dvec_want = (f(do) * f(o)).sum(-1)
     assert (dvec - dvec_want).abs().max().item() <= 1e-4 * dvec_want.abs().max().item()
     for g, w, name in zip((dq, dk, dv), want, "qkv"):
@@ -881,6 +890,72 @@ def test_cuda_fp32_backward_reads_no_column_of_the_next_head(d):
         g0 = g.view(b, s, h, d)[:, :, 0]
         assert torch.isfinite(g0).all() and torch.equal(g0, a.view(b, s, h, d)[:, :, 0])
         assert (g0 - w).abs().max().item() <= RTOL * w.abs().max().item(), f"d{name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,s,h,d", [
+    ("packed", 1, 4096, 8, 40), ("packed", 1, 1024, 8, 80),  # nti's fp32 gradients
+    ("packed", 1, 4096, 1, 512),                             # the VAE mid-block at 512 px
+    ("flat", 2, 4096, 1, 512),                               # two rows: K4b in two stripes
+    ("flat", 1, 1001, 1, 40), ("packed", 1, 1001, 2, 80),    # S not a multiple of 8
+    ("flat", 1, 1001, 1, 512),
+])
+def test_cuda_fp32_backward_pair_matches_plain_and_repeats_bits(kind, b, s, h, d):
+    """The pair (one prep launch, K4a, K4b) on the TF32 routes at the main
+    path's shapes and ragged S: dQ, dK, dV within 2% of the fp32 plain
+    backward's largest magnitude; a second call gives the same bits (one
+    thread sums each output element, in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args, want, f = _fp32_bwd_case(kind, b, s, s, h, d, seed=s + d)
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention_bwd(*args[:7], heads=args[7])
+    again = tfa.flash_attention_bwd(*args[:7], heads=args[7])
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bwd_tf32_prep"] == 2
+    for g, a, w, name in zip(got, again, want, "qkv"):
+        assert torch.equal(g, a), f"d{name} differs between two calls"
+        assert (f(g) - w).abs().max().item() <= RTOL * w.abs().max().item(), f"d{name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed,sq,sk,d", [
+    (True, 4096, 4096, 40), (False, 1001, 1037, 80), (True, 300, 17, 128), (False, 1033, 520, 512),
+])
+def test_cuda_bwd_tf32_prep_matches_plain(packed, sq, sk, d):
+    """The backward's prep kernel against its plain version: K^T, Q^T and
+    dO^T bit for bit (each 8-group in TF32_KEY_ORDER, zero past S, rounded
+    to TF32), D within 1e-5 of its largest magnitude (another summation
+    order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, h = (1, 3) if packed else (3, 1)
+    shape = (lambda n: (b, n, h * d)) if packed else (lambda n: (b * h, n, d))
+    g = torch.Generator(device="cuda").manual_seed(sq + d)
+    q, do, o = (torch.randn(shape(sq), generator=g, device="cuda") for _ in range(3))
+    k = torch.randn(shape(sk), generator=g, device="cuda")
+    heads = h if packed else None
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention_bwd_tf32_prep(q, k, do, o, heads)
+    want = tfa.bwd_tf32_prep_plain(q, k, do, o, heads)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bwd_tf32_prep"] == 1
+    for x, y in zip(got[:3], want[:3]):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
+    assert (got[3] - want[3]).abs().max().item() <= 1e-5 * want[3].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_backward_above_128_is_a_tf32_wgmma_kernel():
+    """flash_attention_bwd_tf32.cu's scores kernel and GEMM are wgmma
+    (HGMMA in the library's SASS), as is the narrow backward's TF32 mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from eta_inversion_tpu_torch.ops import cuda_build
+
+    tfa.build_kernels()
+    assert cuda_build.sass_count(tfa.BWD_TF32_LIB, "HGMMA") > 0
+    assert cuda_build.sass_count(tfa.BWD_NARROW_LIB, "HGMMA") > 0
 
 
 @pytest.mark.cuda

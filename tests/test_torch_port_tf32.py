@@ -3,10 +3,11 @@ TF32 mode's prep kernel (its plain version), and the fp32 kernels' plain
 versions against the JAX package.
 
 * `fwd_library` / `bwd_library` by head dim and dtype: fp32 forward up to
-  head dim 128 on the narrow kernel's TF32 mode, above it and every fp32
-  backward on csrc/flash_attention_fp32.cu, bf16 as before; a tile with
-  TF32 products, bf16 operands with TF32 products above head dim 128 and
-  any other dtype refused.
+  head dim 128 on the narrow kernel's TF32 mode, above it on
+  csrc/flash_attention_fp32.cu; the fp32 backward up to 128 on the narrow
+  backward's TF32 mode, above it on csrc/flash_attention_bwd_tf32.cu; bf16
+  as before; a tile with TF32 products, bf16 operands with TF32 products
+  above head dim 128 and any other dtype refused.
 * The prep kernel's plain version (`tf32_prep_plain`) against index
   arithmetic written out here: V^T with each 8-key group in the order 0, 2,
   4, 6, 1, 3, 5, 7, zero past the keys, rounded to TF32 (checked against a
@@ -19,7 +20,9 @@ versions against the JAX package.
   mode, on fp32 operands; off the CPU branch every fp32 route is a kernel's,
   which raises for a tensor off the card instead of falling back to plain.
 
-The kernels themselves run only on the card: tests/test_torch_port_cuda.py.
+The fp32 backward's own prep kernel and its routes' arithmetic are in
+tests/test_torch_port_tf32_bwd.py; the kernels themselves run only on the
+card: tests/test_torch_port_cuda.py.
 """
 
 import numpy as np
@@ -86,9 +89,11 @@ def test_forward_route_refuses_what_no_kernel_takes(d, tf32, tile, dtype):
 
 @pytest.mark.parametrize("d,dtype,route", [
     (40, BF16, tfa.BWD_NARROW_LIB), (512, BF16, tfa.BWD_LIB),
-    (40, FP32, tfa.FP32_LIB),   # nti's gradients at the 64x64 level in fp32
-    (80, FP32, tfa.FP32_LIB),
-    (512, FP32, tfa.FP32_LIB),  # the VAE mid-block attention in fp32
+    (40, FP32, tfa.BWD_NARROW_TF32),   # nti's gradients at the 64x64 level in fp32
+    (80, FP32, tfa.BWD_NARROW_TF32),
+    (128, FP32, tfa.BWD_NARROW_TF32),  # the TF32 mode's widest head dim
+    (136, FP32, tfa.BWD_TF32_LIB),
+    (512, FP32, tfa.BWD_TF32_LIB),     # the VAE mid-block attention in fp32
 ])
 def test_backward_route_by_dtype(d, dtype, route):
     assert tfa.bwd_library(d, dtype) == route
@@ -203,7 +208,7 @@ def test_fp32_forward_with_lse_matches_pallas_interpret(packed, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(lse), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("bh,s,d", [(2, 256, 40), (1, 256, 512)])
+@pytest.mark.parametrize("bh,s,d", [(2, 256, 40), (2, 256, 80), (1, 256, 512)])
 def test_fp32_backward_plain_version_flat_matches_pallas_interpret(bh, s, d):
     """The flat backward wrappers' CPU branch (K4a then K4b, the fp32
     kernels' plain version) from the JAX forward's LSE, at the UNet's and
@@ -239,9 +244,10 @@ def test_fp32_backward_plain_version_packed_matches_pallas_interpret():
 @pytest.mark.parametrize("packed,d", [(False, 40), (True, 40), (False, 512)])
 def test_fp32_backward_takes_a_kernel_route_and_never_falls_back(packed, d):
     """Off the CPU branch (tensors on the `meta` device stand in for the
-    card's) the fp32 backward goes to flash_attention_fp32.cu's checks, as
-    bf16 goes to its kernels': both refuse a tensor that is not on the card
-    rather than fall back to plain, and nothing is counted."""
+    card's) the fp32 backward goes to its TF32 routes' checks (the prep
+    kernel's first), as bf16 goes to its kernels': both refuse a tensor
+    that is not on the card rather than fall back to plain, and nothing is
+    counted."""
     b, s, h = 1, 64, 2
     shape = (b, s, h * d) if packed else (b * h, s, d)
     heads = h if packed else None
@@ -254,6 +260,8 @@ def test_fp32_backward_takes_a_kernel_route_and_never_falls_back(packed, d):
         with pytest.raises(ValueError, match="CUDA tensor"):
             tfa.flash_attention_bwd_dkv(x, x, x, lse, x, lse.reshape(b * h, s), 0.1,
                                         heads=heads)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tfa.flash_attention_bwd(x, x, x, x, lse, x, 0.1, heads=heads)
     assert set(tfa.LAUNCHES.values()) == {0}
 
 
