@@ -42,7 +42,7 @@ Phases, in order; any failure exits non-zero before the last line:
                kernel at the prototype's shapes; S1 and S3, the prototypes of
                K3, are the mma.sync kernel with a chosen tile (bf16
                operands) or the TF32 mode (fp32 products; the prep kernel
-               timed apart), S4 the multi-head kernel with the
+               timed apart), S4 the narrow kernel's all-heads block with the
                prototype's TF32 operands (its bf16 mode and K1's route timed
                beside it), all at the prototypes' (B, H, S, D) = (32, 8, 4096,
                40), held against the plain version computed a chunk of heads
@@ -52,8 +52,10 @@ Phases, in order; any failure exits non-zero before the last line:
                each K4 row the pair K4a + K4b, the function of SDPA's whole
                backward, timed in turns with it, and two launches of the pair
                that must give the same bits.  The fp32 kernels: K3 at the
-               VAE's d = 512 with its LSE (flash_attention_fp32.cu, mma.sync
-               TF32); K4a / K4b at nti's shapes on the narrow backward's TF32
+               VAE's d = 512 with its LSE (flash_attention_bwd_tf32.cu: Vᵀ
+               from the backward's prep kernel, the scores kernel's forward
+               mode, the TF32 GEMM that forms P; two calls must give the
+               same bits); K4a / K4b at nti's shapes on the narrow backward's TF32
                mode and at d = 512 on flash_attention_bwd_tf32.cu (scores and
                TF32 GEMMs), the pair beside SDPA and bitwise repeated as in
                bf16; their prep kernel (K, Q, dO transposed, D) against its
@@ -64,7 +66,7 @@ Phases, in order; any failure exits non-zero before the last line:
                both calls' mean error against the fp32 plain result.  Then one gradient through the
                full-width sd15 VAE mid-block attention (512 px: S = 4096, d =
                512) against the plain path's, in bf16 and in fp32 (the fp32
-               one on flash_attention_bwd_tf32.cu).
+               one, forward and backward, on flash_attention_bwd_tf32.cu).
 4. fused    -- the opt-in entry points of K5 and K6 (the JAX package keeps
                both off its served paths) on one full-width sd15 UNet call
                (random weights from a seed, bf16, the ptp backward's 4 rows):
@@ -99,7 +101,7 @@ Phases, in order; any failure exits non-zero before the last line:
                fp32 etainv+ptp 512x512 edit served, which must be finite
                512x512x3, with its s/edit and the launches by route: K1 / K2
                on the TF32 mode and its prep kernel, the VAE's d = 512
-               attention on flash_attention_fp32.cu; then one sd15 fp32
+               attention on flash_attention_bwd_tf32.cu; then one sd15 fp32
                nti+ptp edit served (FP32_NTI_STEPS steps), whose backward
                must run on the narrow backward's TF32 mode, one prep launch
                a pair.
@@ -288,9 +290,9 @@ KERNELS = [
      "replaces": "scripts/attn_multihead_bench.py:65 (prod_flash -> prod_kernel :40)",
      "counter": "flash_attention_bhsd_tf32", "source": "flash_attention_narrow.cu",
      "shapes": [("prod", 256, 4096, 40, 40)]},
-    {"name": "S4 v8_multihead (TF32 operands)",
+    {"name": "S4 v8_multihead (TF32, all-heads block)",
      "replaces": "scripts/attn_multihead_bench.py:130 (v8_multihead -> mh_kernel :99)",
-     "counter": "flash_attention_multihead_tf32", "source": "flash_multihead.cu",
+     "counter": "flash_attention_multihead_tf32", "source": "flash_attention_narrow.cu",
      "shapes": [("multihead", 32, 4096, 8, 40)]},
     # the backward above head dim 128: the VAE mid-block attention at 512
     # and 256 px (one head, flat)
@@ -304,12 +306,13 @@ KERNELS = [
                  "_flash_dkv_kernel :170)",
      "counter": "flash_attention_bwd_dkv_wide", "source": "flash_attention_bwd.cu",
      "shapes": [("bwd_dkv", 1, 4096, 1, 512), ("bwd_dkv", 2, 1024, 1, 512)]},
-    # fp32 where the TF32 mode does not reach (flash_attention_fp32.cu): K3 at
-    # the VAE mid-block's d = 512 (decode's two rows, encode's one)
-    {"name": "K3 fp32 (flash_attention_fp32.cu)",
+    # fp32 where the TF32 mode does not reach: K3 at the VAE mid-block's d =
+    # 512 (decode's two rows, encode's one); each row's time includes the
+    # route's Vᵀ prep launch
+    {"name": "K3 fp32, d > 128 (scores + TF32 GEMM)",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:97 (_flash_fwd_impl, "
                  "block_k < S -> _flash_kernel :62), fp32 operands",
-     "counter": "flash_attention_fwd_fp32", "source": "flash_attention_fp32.cu",
+     "counter": "flash_attention_fwd_fp32", "source": "flash_attention_bwd_tf32.cu",
      "shapes": [("blockwise_fp32", 2, 4096, 1, 512), ("blockwise_fp32", 1, 4096, 1, 512)]},
     # the fp32 backward: K4a / K4b at nti's shapes (its fp32 gradients) on the
     # narrow backward's TF32 mode, at the VAE mid-block's d = 512 (one and two
@@ -351,9 +354,9 @@ MICROBENCH_COUNTERS = ("flash_attention_bhsd_tiled", "flash_attention_bhsd_tf32"
                        "flash_attention_multihead_tf32")
 OPT_IN_COUNTERS = ("crossk_attention", "geglu_fused", "flash_attention_multihead",
                    *MICROBENCH_COUNTERS)
-# the fp32 kernels: the TF32 mode and its prep kernel, flash_attention_fp32.cu,
-# and the backward's TF32 routes and their prep kernel, idle on the bf16
-# served paths
+# the fp32 kernels: the TF32 mode and its prep kernel, the forward above head
+# dim 128, and the backward's TF32 routes and their prep kernel, idle on the
+# bf16 served paths
 FP32_COUNTERS = ("flash_attention_narrow_tf32", "flash_attention_tf32_prep",
                  "flash_attention_fwd_fp32", "flash_attention_bwd_dq_tf32",
                  "flash_attention_bwd_dkv_tf32", "flash_attention_bwd_dq_tf32_wide",
@@ -557,6 +560,13 @@ def _fwd_case(kind, q, k, v, b, s, h, d, scale):
             extra.update(_beside_tf32(kind, q, k, v, h, scale, got, want,
                                       prep=d <= fa.NARROW_MAX_HEAD_DIM))
             extra.update(_beside_sdpa_fp32(qh, kh, vh, scale, want))
+            if d > fa.NARROW_MAX_HEAD_DIM:  # materialized scores: a fixed order
+                _, lse_again = with_lse()
+                extra["bitwise_repeatable"] = torch.equal(got, run()) \
+                    and torch.equal(lse, lse_again)
+                if not extra["bitwise_repeatable"]:
+                    raise RuntimeError("two calls of the fp32 forward above head dim 128 "
+                                       "differ")
         elif fa.fwd_library(d) == fa.NARROW_LIB:
             extra.update(_beside_narrow(kind, q, k, v, h, scale, run, with_lse, want))
         return [(got, want)]
@@ -927,12 +937,12 @@ def _sweep_case(kind, shape, seed):
 
 
 def _multihead_case(kind, shape, seed):
-    """S4: the multi-head kernel at (B, S, H, d), the packed layout, default
-    tile, with the prototype's fp32 (TF32) operands; the plain version one
-    batch element (H heads) at a time.  Also checks that its mean error
-    against the fp32 plain result is below its bf16 mode's, and times its
-    bf16 mode beside K1's route (bf16, one block per (batch, head)) on the
-    same inputs: the layout question with equal operands."""
+    """S4: the narrow kernel's all-heads block at (B, S, H, d), the packed
+    layout, its one tile, with the prototype's fp32 (TF32) products; the
+    plain version one batch element (H heads) at a time.  Also checks that
+    its mean error against the fp32 plain result is below its bf16 mode's,
+    and times its bf16 mode beside K1's route (bf16, one block per (batch,
+    head)) on the same inputs: the layout question with equal operands."""
     b, s, h, d = shape
     q, k, v = _inputs("packed", b, s, h, d, seed=seed)
     scale = d ** -0.5
@@ -1091,6 +1101,13 @@ def phase_vae_grad(dtype=torch.bfloat16) -> dict:
             or not counts[f"flash_attention_bwd_dkv_{sub}"] == counts["flash_attention_bwd_dkv"] == 1:
         raise RuntimeError(f"the {dtype} VAE attention gradient's backward is not on {src}: "
                            f"{counts}")
+    # its forward (K3 with the LSE): fp32 on the route above head dim 128 of
+    # flash_attention_bwd_tf32.cu, bf16 on flash_attention_wide.cu
+    if not counts["flash_attention_bhsd_blockwise"] == 1 \
+            or counts["flash_attention_fwd_fp32"] != int(fp32):
+        raise RuntimeError(f"the {dtype} VAE attention gradient's forward is not on "
+                           f"{'flash_attention_bwd_tf32.cu' if fp32 else 'flash_attention_wide.cu'}"
+                           f": {counts}")
     del mod, got, want
     torch.cuda.empty_cache()
     return counts
@@ -1534,8 +1551,8 @@ def phase_fp32(steps: int) -> dict:
     if not fp32_routed(counts):
         raise RuntimeError(f"fp32 edit: K1-K3 not on the fp32 kernels: {routes}")
     if counts["flash_attention_fwd_fp32"] == 0:
-        raise RuntimeError("fp32 edit: the VAE's d = 512 attention did not run on "
-                           "flash_attention_fp32.cu")
+        raise RuntimeError("fp32 edit: the VAE's d = 512 attention did not run on the "
+                           "fp32 route above head dim 128 (flash_attention_bwd_tf32.cu)")
     _check_opt_in_idle(counts, "fp32", fp32=True)
     nti = _fp32_nti_edit()
     for k, n in nti["launches"].items():

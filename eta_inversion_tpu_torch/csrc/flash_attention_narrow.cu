@@ -23,7 +23,11 @@
 //   K3  _flash_kernel (:62), the blockwise flat calls at these head dims;
 // and, in the TF32 mode, the fp32-operand products of two Pallas prototypes
 // of K3: S1 `flash` (scripts/flash_sweep.py:70, kernel :33) and S3
-// `prod_flash` (scripts/attn_multihead_bench.py:65, kernel :40).
+// `prod_flash` (scripts/attn_multihead_bench.py:65, kernel :40); and, in
+// either mode, the Pallas prototype S4 `v8_multihead` / `mh_kernel`
+// (scripts/attn_multihead_bench.py:130, kernel :99), one program per (batch,
+// query block) walking every head, as the all-heads block set out below the
+// entry points' kernels (HEADS).
 // A layout is strides: head h of a packed row starts at column h d.  Head
 // dims above 128 run on flash_attention_wide.cu; the microbenchmarks' chosen
 // bf16 tiles on flash_attention.cu (mma.sync).
@@ -38,7 +42,7 @@
 // flight.
 //
 // Design of the bf16 mode.  One block per 128 query rows of one (batch,
-// head), the per-head route (S4's all-heads block was 2.0x slower): two
+// head), the per-head route: two
 // consumer warpgroups of 64 rows each and one producer warpgroup (384
 // threads; setmaxnreg moves the producer's registers to the consumers), one
 // block an SM.
@@ -78,6 +82,18 @@
 // from registers.  Two blocks an SM would fit shared memory at d <= 64 (Q
 // 16 KB + stages of 32 KB) but not the registers of the pipelined loop (S,
 // P of two tiles and O: about 170 a thread), so one block an SM it is.
+//
+// S4's all-heads block (HEADS, both modes, d of 33-48 only): one block per
+// (batch element, 128 query rows) walks the H heads of the packed (B, S,
+// H*D) rows in order, each head as the per-head block computes it (the same
+// producer, consumers and tiles, each TMA box D columns of one head).  The
+// ring runs on across heads: the producer issues head h + 1's K/V tiles as
+// soon as head h's stages are released, and loads head h + 1's Q as soon as
+// both warpgroups are past head h's last Q K^T (an mbarrier, `qfree`), so
+// the next Q and first tiles land while head h's last softmax, P V and
+// stores run.  Both warpgroups share each head's K/V tiles (128 query rows
+// per staged byte, as K1), and the block holds one Q buffer (a second would
+// cost the TF32 mode a ring stage at d = 48).
 //
 // Two measurement switches, for scripts/torch_flash_fwd_breakdown.py only:
 // ETI_FWD_SKIP_SOFTMAX (P = the raw scores: no max, exponentials or
@@ -192,6 +208,22 @@ __device__ __forceinline__ void issue_pv(float (&o0)[N0 / 8][4], float (&o1)[NT1
   }
 }
 
+// The heads a block walks: its own (blockIdx.y = batch * heads + head), or
+// with `all` (S4's all-heads block) every head of batch element blockIdx.y,
+// one after another.
+struct HeadWalk {
+  int heads, count;
+  bool all;
+  __device__ __forceinline__ HeadWalk(int heads_, bool all_)
+      : heads(heads_), count(all_ ? heads_ : 1), all(all_) {}
+  __device__ __forceinline__ int batch() const {
+    return all ? (int)blockIdx.y : (int)blockIdx.y / heads;
+  }
+  __device__ __forceinline__ int head(int i) const {
+    return all ? i : (int)blockIdx.y % heads;
+  }
+};
+
 template <int DP>
 struct Tiles {
   static constexpr int NKB = (DP + kBoxCols - 1) / kBoxCols;  // boxes across the head dim
@@ -201,8 +233,9 @@ struct Tiles {
   static constexpr size_t kSmem = 1024 + (size_t)kQBytes + (size_t)kStages * kStageBytes;
 };
 
-// DP: head dim padded to a multiple of 16 (16 .. 128)
-template <int DP>
+// DP: head dim padded to a multiple of 16 (16 .. 128); HEADS: the block
+// walks every head of its batch element (S4's all-heads block, below)
+template <int DP, bool HEADS = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_narrow_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -214,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int N1 = DP - N0;                          // and of box 1
   constexpr int NT1 = N1 > 0 ? N1 / 8 : 1;
 
-  __shared__ __align__(8) uint64_t qbar, full[kStages], empty[kStages];
+  __shared__ __align__(8) uint64_t qbar, qfree, full[kStages], empty[kStages];
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: boxes start on that grain
   unsigned char* qs = reinterpret_cast<unsigned char*>(
@@ -224,9 +257,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads;
-  const int h = bh % p.heads;
+  const HeadWalk hw(p.heads, HEADS);
+  const int b = hw.batch();
   const int q0 = blockIdx.x * kBQ;
   const int ntiles = (p.sk + kBK - 1) / kBK;
 
@@ -241,6 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (tid == 0) {
     mbar_init(&qbar, 1);
+    mbar_init(&qfree, kConsumerWarps);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumerWarps);
@@ -252,23 +285,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (warp >= kConsumerWarps) {  // ---- producer: one thread issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp == kConsumerWarps && lane == 0) {
-      mbar_expect_tx(&qbar, T::kQBytes);
-      for (int x = 0; x < NKB; ++x) tma_load(qs + x * kQBox, &tq, &qbar, x * kBoxCols, q0, h, b);
-      for (int j = 0; j < ntiles; ++j) {
-        const int s = j % kStages;
-        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
+      for (int i = 0; i < hw.count; ++i) {
+        const int h = hw.head(i);
+        if (i > 0) mbar_wait(&qfree, (i - 1) & 1);  // the last head's Q K^T are done
+        mbar_expect_tx(&qbar, T::kQBytes);
+        for (int x = 0; x < NKB; ++x) tma_load(qs + x * kQBox, &tq, &qbar, x * kBoxCols, q0, h, b);
+        for (int j = 0; j < ntiles; ++j) {
+          const int t = i * ntiles + j;  // the ring runs on across heads
+          const int s = t % kStages;
+          if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
 #ifdef ETI_FWD_SKIP_LOADS
-        if (j >= kStages) {  // the stage keeps the tile it holds
-          mbar_arrive(&full[s]);
-          continue;
-        }
+          if (t >= kStages) {  // the stage keeps the tile it holds
+            mbar_arrive(&full[s]);
+            continue;
+          }
 #endif
-        unsigned char* ks = ring + s * T::kStageBytes;
-        unsigned char* vs = ks + NKB * kKVBox;
-        mbar_expect_tx(&full[s], p.stage_bytes);
-        for (int x = 0; x < NKB; ++x) {
-          tma_load(ks + x * kKVBox, &tk, &full[s], x * kBoxCols, j * kBK, h, b);
-          tma_load(vs + x * kKVBox, &tv, &full[s], x * kBoxCols, j * kBK, h, b);
+          unsigned char* ks = ring + s * T::kStageBytes;
+          unsigned char* vs = ks + NKB * kKVBox;
+          mbar_expect_tx(&full[s], p.stage_bytes);
+          for (int x = 0; x < NKB; ++x) {
+            tma_load(ks + x * kKVBox, &tk, &full[s], x * kBoxCols, j * kBK, h, b);
+            tma_load(vs + x * kKVBox, &tv, &full[s], x * kBoxCols, j * kBK, h, b);
+          }
         }
       }
     }
@@ -284,14 +322,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t4 = lane & 3;
 
   float o0[N0 / 8][4], o1[NT1][4];
-  zero_acc(o0);
-  zero_acc(o1);
   float sc[16][4];
-  zero_acc(sc);
   uint32_t pa[kSteps16][4], pb[kSteps16][4];  // P of two tiles, roles alternating
-  float m_r[2] = {-INFINITY, -INFINITY};  // running max (log2 domain), rows g, g+8
-  float l_r[2] = {0.f, 0.f};              // this thread's share of the row sums
+  float m_r[2], l_r[2];  // running max (log2 domain), this thread's share of the row sums
   float alpha[2];
+  int t0 = 0;  // the ring index of the head's first tile
 
   const uint64_t q_desc = sw128_desc(qs + wg * kWgRows * 128, 16, 1024);
   auto k_desc = [&](int s) { return sw128_desc(ring + s * T::kStageBytes, 16, 1024); };
@@ -308,11 +343,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done reading stage s
   };
+  // the head's last Q K^T is done: the producer may load the next head's Q
+  auto free_q = [&](int j) {
+    if (HEADS && j == ntiles - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&qfree);
+    }
+  };
   // tile j's scores and tile j-1's P V in flight together, tile j's softmax
   // under the P V (its P into pout), then O rescaled
   auto step = [&](int j, uint32_t(&pin)[kSteps16][4], uint32_t(&pout)[kSteps16][4]) {
-    const int s = j % kStages, sp = (j - 1) % kStages;
-    mbar_wait(&full[s], (j / kStages) & 1);
+    const int s = (t0 + j) % kStages, sp = (t0 + j - 1) % kStages;
+    mbar_wait(&full[s], ((t0 + j) / kStages) & 1);
     __syncwarp();
     fence_regs(sc);
     fence_regs(o0);
@@ -325,6 +367,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_commit();
     wgmma_wait<1>();  // the scores
     fence_regs(sc);
+    free_q(j);
     softmax(j, pout);
     wgmma_wait<0>();
     fence_regs(o0);
@@ -336,64 +379,75 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   // the last tile's P V
   auto last_pv = [&](uint32_t(&pin)[kSteps16][4]) {
+    const int s = (t0 + ntiles - 1) % kStages;
     fence_regs(o0);
     fence_regs(o1);
     fence_frags(pin);
     wgmma_fence();
-    issue_pv<N0, N1, NT1>(o0, o1, pin, v_desc((ntiles - 1) % kStages));
+    issue_pv<N0, N1, NT1>(o0, o1, pin, v_desc(s));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o0);
     fence_regs(o1);
     fence_frags(pin);
+    if (HEADS) release(s);  // the next head's tiles follow in the ring
   };
 
-  mbar_wait(&qbar, 0);
-  // tile 0: its scores alone
-  mbar_wait(&full[0], 0);
-  fence_regs(sc);
-  wgmma_fence();
-  issue_qk<DP>(sc, q_desc, k_desc(0));
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(sc);
-  softmax(0, pa);
-  int j = 1;
-  for (; j + 1 < ntiles; j += 2) {
-    step(j, pa, pb);
-    step(j + 1, pb, pa);
-  }
-  if (j < ntiles) {
-    step(j, pa, pb);
-    last_pv(pb);
-  } else {
-    last_pv(pa);
-  }
+  for (int i = 0; i < hw.count; ++i, t0 += ntiles) {
+    const int h = hw.head(i);
+    zero_acc(o0);
+    zero_acc(o1);
+    zero_acc(sc);
+    m_r[0] = m_r[1] = -INFINITY;
+    l_r[0] = l_r[1] = 0.f;
+    mbar_wait(&qbar, i & 1);
+    // tile 0: its scores alone
+    mbar_wait(&full[t0 % kStages], (t0 / kStages) & 1);
+    fence_regs(sc);
+    wgmma_fence();
+    issue_qk<DP>(sc, q_desc, k_desc(t0 % kStages));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    free_q(0);
+    softmax(0, pa);
+    int j = 1;
+    for (; j + 1 < ntiles; j += 2) {
+      step(j, pa, pb);
+      step(j + 1, pb, pa);
+    }
+    if (j < ntiles) {
+      step(j, pa, pb);
+      last_pv(pb);
+    } else {
+      last_pv(pa);
+    }
 
-  // ---- normalise and store this warp's rows
-  float inv_l[2];
-  row_sums(l_r, inv_l);
-  const int row0 = q0 + wrow + g;
-  if (p.lse != nullptr && t4 == 0) {
-    float* lg = p.lse + b * p.lse_sb + h * p.lse_sh;
-    if (row0 < p.sq) lg[row0] = (m_r[0] + log2f(l_r[0])) * kLn2;
-    if (row0 + 8 < p.sq) lg[row0 + 8] = (m_r[1] + log2f(l_r[1])) * kLn2;
+    // ---- normalise and store this warp's rows
+    float inv_l[2];
+    row_sums(l_r, inv_l);
+    const int row0 = q0 + wrow + g;
+    if (p.lse != nullptr && t4 == 0) {
+      float* lg = p.lse + b * p.lse_sb + h * p.lse_sh;
+      if (row0 < p.sq) lg[row0] = (m_r[0] + log2f(l_r[0])) * kLn2;
+      if (row0 + 8 < p.sq) lg[row0 + 8] = (m_r[1] + log2f(l_r[1])) * kLn2;
+    }
+    __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
+    store_rows(og, p.o_ss, row0, p.sq, 0, p.d, t4, o0, inv_l);
+    if constexpr (N1 > 0) store_rows(og, p.o_ss, row0, p.sq, kBoxCols, p.d, t4, o1, inv_l);
   }
-  __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
-  store_rows(og, p.o_ss, row0, p.sq, 0, p.d, t4, o0, inv_l);
-  if constexpr (N1 > 0) store_rows(og, p.o_ss, row0, p.sq, kBoxCols, p.d, t4, o1, inv_l);
 }
 
-template <int DP>
+template <int DP, bool HEADS = false>
 int launch_narrow(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                   const NarrowParams& p, int batch, cudaStream_t stream) {
   constexpr size_t smem = Tiles<DP>::kSmem;
   static_assert(smem + 64 <= 232448, "tiles do not fit a block's shared memory");
-  cudaError_t err = cudaFuncSetAttribute(flash_narrow_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_narrow_kernel<DP, HEADS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.sq + kBQ - 1) / kBQ, batch * p.heads);
-  flash_narrow_kernel<DP><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  const dim3 grid((p.sq + kBQ - 1) / kBQ, HEADS ? batch : batch * p.heads);
+  flash_narrow_kernel<DP, HEADS><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -530,8 +584,10 @@ __device__ __forceinline__ void issue_pv_tf32(float (&o)[DP / 8][4], const float
   }
 }
 
-// DP: head dim padded to a multiple of 16 (16 .. 128); OutT: o's type
-template <int DP, typename OutT>
+// DP: head dim padded to a multiple of 16 (16 .. 128); OutT: o's type;
+// HEADS: the block walks every head of its batch element (S4's all-heads
+// block)
+template <int DP, typename OutT, bool HEADS = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_narrow_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -542,7 +598,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kStages = T::kStages;
   constexpr int NT = BK / 8;  // n8 chunks of a score tile, k8 steps of its P V
 
-  __shared__ __align__(8) uint64_t qbar, full[kStages], empty[kStages];
+  __shared__ __align__(8) uint64_t qbar, qfree, full[kStages], empty[kStages];
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -551,14 +607,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads;
-  const int h = bh % p.heads;
+  const HeadWalk hw(p.heads, HEADS);
+  const int b = hw.batch();
   const int q0 = blockIdx.x * kBQ;
   const int ntiles = (p.sk + BK - 1) / BK;
 
   if (tid == 0) {
     mbar_init(&qbar, 1);
+    mbar_init(&qfree, kConsumerWarps);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumerWarps);
@@ -570,18 +626,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (warp >= kConsumerWarps) {  // ---- producer: one thread issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp == kConsumerWarps && lane == 0) {
-      mbar_expect_tx(&qbar, T::kQBytes);
-      for (int x = 0; x < NKB; ++x) tma_load(qs + x * kQBox, &tq, &qbar, x * kBoxColsF, q0, h, b);
-      for (int j = 0; j < ntiles; ++j) {
-        const int s = j % kStages;
-        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
-        unsigned char* ks = ring + s * T::kStageBytes;
-        unsigned char* vs = ks + NKB * T::kKBox;
-        mbar_expect_tx(&full[s], T::kStageBytes);
+      for (int i = 0; i < hw.count; ++i) {
+        const int h = hw.head(i);
+        if (i > 0) mbar_wait(&qfree, (i - 1) & 1);  // the last head's Q K^T are done
+        mbar_expect_tx(&qbar, T::kQBytes);
         for (int x = 0; x < NKB; ++x)
-          tma_load(ks + x * T::kKBox, &tk, &full[s], x * kBoxColsF, j * BK, h, b);
-        for (int x = 0; x < T::NVB; ++x)
-          tma_load(vs + x * T::kVtBox, &tvt, &full[s], j * BK + x * kBoxColsF, 0, bh, 0);
+          tma_load(qs + x * kQBox, &tq, &qbar, x * kBoxColsF, q0, h, b);
+        for (int j = 0; j < ntiles; ++j) {
+          const int t = i * ntiles + j;  // the ring runs on across heads
+          const int s = t % kStages;
+          if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+          unsigned char* ks = ring + s * T::kStageBytes;
+          unsigned char* vs = ks + NKB * T::kKBox;
+          mbar_expect_tx(&full[s], T::kStageBytes);
+          for (int x = 0; x < NKB; ++x)
+            tma_load(ks + x * T::kKBox, &tk, &full[s], x * kBoxColsF, j * BK, h, b);
+          for (int x = 0; x < T::NVB; ++x)
+            tma_load(vs + x * T::kVtBox, &tvt, &full[s], j * BK + x * kBoxColsF, 0,
+                     b * p.heads + h, 0);
+        }
       }
     }
     return;
@@ -595,13 +658,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t4 = lane & 3;
 
   float o[DP / 8][4];
-  zero_acc(o);
   float sa[NT][4], sb[NT][4];  // two tiles' scores, then their P in place
-  zero_acc(sa);
-  zero_acc(sb);
-  float m_r[2] = {-INFINITY, -INFINITY};  // running max (log2 domain), rows g, g+8
-  float l_r[2] = {0.f, 0.f};              // this thread's share of the row sums
+  float m_r[2], l_r[2];  // running max (log2 domain), this thread's share of the row sums
   float alpha[2];
+  int t0 = 0;  // the ring index of the head's first tile
 
   const uint64_t q_desc = sw128_desc(qs + wg * kWgRows * 128, 16, 1024);
   auto k_desc = [&](int s) { return sw128_desc(ring + s * T::kStageBytes, 16, 1024); };
@@ -618,11 +678,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done reading stage s
   };
+  // the head's last Q K^T is done: the producer may load the next head's Q
+  auto free_q = [&](int j) {
+    if (HEADS && j == ntiles - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&qfree);
+    }
+  };
   // tile j's scores (into sc) and tile j-1's P V (P in pin) in flight
   // together, tile j's softmax under the P V, then O rescaled
   auto step = [&](int j, float(&pin)[NT][4], float(&sc)[NT][4]) {
-    const int s = j % kStages, sp = (j - 1) % kStages;
-    mbar_wait(&full[s], (j / kStages) & 1);
+    const int s = (t0 + j) % kStages, sp = (t0 + j - 1) % kStages;
+    mbar_wait(&full[s], ((t0 + j) / kStages) & 1);
     __syncwarp();
     fence_regs(sc);
     fence_regs(o);
@@ -634,6 +701,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_commit();
     wgmma_wait<1>();  // the scores
     fence_regs(sc);
+    free_q(j);
     softmax(j, sc);
     wgmma_wait<0>();
     fence_regs(o);
@@ -642,48 +710,59 @@ __global__ void __launch_bounds__(kThreads, 1)
     scale_rows(o, alpha);
   };
   auto last_pv = [&](float(&pin)[NT][4]) {
+    const int s = (t0 + ntiles - 1) % kStages;
     fence_regs(o);
     fence_regs(pin);
     wgmma_fence();
-    issue_pv_tf32<DP>(o, pin, vt_desc((ntiles - 1) % kStages));
+    issue_pv_tf32<DP>(o, pin, vt_desc(s));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pin);
+    if (HEADS) release(s);  // the next head's tiles follow in the ring
   };
 
-  mbar_wait(&qbar, 0);
-  mbar_wait(&full[0], 0);
-  fence_regs(sa);
-  wgmma_fence();
-  issue_qk_tf32<DP>(sa, q_desc, k_desc(0));
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(sa);
-  softmax(0, sa);
-  int j = 1;
-  for (; j + 1 < ntiles; j += 2) {
-    step(j, sa, sb);
-    step(j + 1, sb, sa);
-  }
-  if (j < ntiles) {
-    step(j, sa, sb);
-    last_pv(sb);
-  } else {
-    last_pv(sa);
-  }
+  for (int i = 0; i < hw.count; ++i, t0 += ntiles) {
+    const int h = hw.head(i);
+    zero_acc(o);
+    zero_acc(sa);
+    zero_acc(sb);
+    m_r[0] = m_r[1] = -INFINITY;
+    l_r[0] = l_r[1] = 0.f;
+    mbar_wait(&qbar, i & 1);
+    mbar_wait(&full[t0 % kStages], (t0 / kStages) & 1);
+    fence_regs(sa);
+    wgmma_fence();
+    issue_qk_tf32<DP>(sa, q_desc, k_desc(t0 % kStages));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+    free_q(0);
+    softmax(0, sa);
+    int j = 1;
+    for (; j + 1 < ntiles; j += 2) {
+      step(j, sa, sb);
+      step(j + 1, sb, sa);
+    }
+    if (j < ntiles) {
+      step(j, sa, sb);
+      last_pv(sb);
+    } else {
+      last_pv(sa);
+    }
 
-  // ---- normalise and store this warp's rows
-  float inv_l[2];
-  row_sums(l_r, inv_l);
-  const int row0 = q0 + wrow + g;
-  if (p.lse != nullptr && t4 == 0) {
-    float* lg = p.lse + b * p.lse_sb + h * p.lse_sh;
-    if (row0 < p.sq) lg[row0] = (m_r[0] + log2f(l_r[0])) * kLn2;
-    if (row0 + 8 < p.sq) lg[row0 + 8] = (m_r[1] + log2f(l_r[1])) * kLn2;
+    // ---- normalise and store this warp's rows
+    float inv_l[2];
+    row_sums(l_r, inv_l);
+    const int row0 = q0 + wrow + g;
+    if (p.lse != nullptr && t4 == 0) {
+      float* lg = p.lse + b * p.lse_sb + h * p.lse_sh;
+      if (row0 < p.sq) lg[row0] = (m_r[0] + log2f(l_r[0])) * kLn2;
+      if (row0 + 8 < p.sq) lg[row0 + 8] = (m_r[1] + log2f(l_r[1])) * kLn2;
+    }
+    OutT* og = static_cast<OutT*>(p.o) + b * p.o_sb + h * p.o_sh;
+    store_rows(og, p.o_ss, row0, p.sq, 0, p.d, t4, o, inv_l);
   }
-  OutT* og = static_cast<OutT*>(p.o) + b * p.o_sb + h * p.o_sh;
-  store_rows(og, p.o_ss, row0, p.sq, 0, p.d, t4, o, inv_l);
 }
 
 // element strides (batch, head, row) of q and k
@@ -691,7 +770,7 @@ struct QkStrides {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss;
 };
 
-template <int DP, typename OutT>
+template <int DP, typename OutT, bool HEADS = false>
 int launch_narrow_tf32(const void* q, const void* k, const void* vt, const QkStrides& st,
                        int batch, int spad, const Tf32Params& p, cudaStream_t stream) {
   using T = TilesTf32<DP>;
@@ -707,12 +786,13 @@ int launch_narrow_tf32(const void* q, const void* k, const void* vt, const QkStr
       !make_map(encode, &tvt, vt, spad, p.d, batch * p.heads, 1, spad, (long long)p.d * spad, 0,
                 DP, kBoxColsF, 4))
     return kUnsupported;
-  cudaError_t err = cudaFuncSetAttribute(flash_narrow_tf32_kernel<DP, OutT>,
+  cudaError_t err = cudaFuncSetAttribute(flash_narrow_tf32_kernel<DP, OutT, HEADS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.sq + kBQ - 1) / kBQ, batch * p.heads);
-  flash_narrow_tf32_kernel<DP, OutT><<<grid, kThreads, T::kSmem, stream>>>(tq, tk, tvt, p);
+  const dim3 grid((p.sq + kBQ - 1) / kBQ, HEADS ? batch : batch * p.heads);
+  flash_narrow_tf32_kernel<DP, OutT, HEADS><<<grid, kThreads, T::kSmem, stream>>>(tq, tk, tvt,
+                                                                                  p);
   return (int)cudaGetLastError();
 }
 
@@ -936,4 +1016,60 @@ extern "C" int eti_flash_attention_tf32_prep(
   else
     flash_tf32_prep_kernel<float><<<grid, kPrepThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// S4's all-heads block (flash_narrow_kernel / flash_narrow_tf32_kernel with
+// HEADS): one block per (batch element, 128 query rows) walks every head of
+// packed (batch, rows, heads * d) operands, d of 33-48 (the instances at DP
+// = 48).  tf32 0: bf16 q, k, v (entry point of the bf16 mode); tf32 1: q and
+// k fp32 (the prep kernel's widened copies, same layout) and v the prep's
+// V^T (batch * heads, d, spad), the products on the TF32 mode.  o bf16.
+// Element strides (batch, row) of each operand, the last dim contiguous;
+// v's are not read with tf32 1.  No LSE.  Returns a cudaError_t (0 =
+// launched), or kUnsupported for a head dim outside 33-48 or not a multiple
+// of 8, an empty sequence, an spad below sk or not a multiple of 8 (tf32
+// 1), a scale that is not positive and finite, or strides the tensor maps
+// refuse.
+extern "C" int eti_flash_attention_narrow_heads_fwd(
+    const void* q, const void* k, const void* v, void* o, int batch, int heads, int sq, int sk,
+    int d, int spad, int tf32, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+    long long v_sb, long long v_ss, long long o_sb, long long o_ss, float scale, void* stream) {
+  if ((d + 15) / 16 * 16 != 48 || d % 8 != 0 || sq <= 0 || sk <= 0 || batch <= 0 ||
+      heads <= 0 || !(scale > 0.f) || !isfinite(scale) ||
+      (tf32 && (spad < sk || spad % 8 != 0)))
+    return kUnsupported;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tf32) {
+    Tf32Params p;
+    p.o = o;
+    p.lse = nullptr;
+    p.heads = heads;
+    p.sq = sq;
+    p.sk = sk;
+    p.d = d;
+    p.o_sb = o_sb; p.o_sh = d; p.o_ss = o_ss;
+    p.lse_sb = p.lse_sh = 0;
+    p.scale_log2 = scale * kLog2e;
+    const QkStrides qk = {q_sb, d, q_ss, k_sb, d, k_ss};
+    return launch_narrow_tf32<48, __nv_bfloat16, true>(q, k, v, qk, batch, spad, p, st);
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(encode, &tq, q, d, sq, heads, batch, q_ss, d, q_sb, kBQ) ||
+      !make_map(encode, &tk, k, d, sk, heads, batch, k_ss, d, k_sb, kBK, d) ||
+      !make_map(encode, &tv, v, d, sk, heads, batch, v_ss, d, v_sb, kBK, d))
+    return kUnsupported;
+  NarrowParams p;
+  p.stage_bytes = 2u * kBK * d * 2;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = nullptr;
+  p.heads = heads;
+  p.sq = sq;
+  p.sk = sk;
+  p.d = d;
+  p.o_sb = o_sb; p.o_sh = d; p.o_ss = o_ss;
+  p.lse_sb = p.lse_sh = 0;
+  p.scale_log2 = scale * kLog2e;
+  return launch_narrow<48, true>(tq, tk, tv, p, batch, st);
 }

@@ -1,12 +1,10 @@
 // Helpers shared by the port's kernels (flash_attention.cu, flash_attention_narrow.cu,
 // flash_attention_wide.cu, flash_attention_bwd.cu, flash_attention_bwd_narrow.cu,
-// flash_attention_bwd_tf32.cu, flash_attention_fp32.cu,
-// flash_multihead.cu, crossk_attention.cu, geglu.cu):
-// the bf16 tensor-core product mma.sync m16n8k16 with fp32 accumulation (and
-// the TF32 m16n8k8), its
+// flash_attention_bwd_tf32.cu, crossk_attention.cu, geglu.cu):
+// the bf16 tensor-core product mma.sync m16n8k16 with fp32 accumulation, its
 // fragment loads from shared memory and from accumulators, the online-softmax
-// step, accumulator slots in shared memory, and a zero-padded row load into
-// shared memory.
+// step, accumulator slots in shared memory, a zero-padded row load into
+// shared memory, and the TF32 rounding of the TF32 kernels.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t4..2t4+1), a1 = (g+8, 2t4..),
@@ -15,14 +13,6 @@
 //   C (16 x 8):             c0,c1 = (g, 2t4..2t4+1), c2,c3 = (g+8, 2t4..)
 // so the accumulators of two neighbouring n8 tiles are, packed to bf16, the
 // A fragment of one 16-deep step.
-//
-// The fp32-operand (TF32) product mma.sync m16n8k8 of the multi-head
-// kernel's TF32 mode (flash_multihead.cu) has its own fragments (registers
-// hold fp32 bit patterns):
-//   A (16 x 8):  a0 = (g, t4), a1 = (g+8, t4), a2 = (g, t4+4), a3 = (g+8, t4+4)
-//   B (8 x 8):   b0 = (k t4, n g), b1 = (k t4+4, n g)
-//   C:           as m16n8k16's
-// so an accumulator is not an A fragment: acc_to_a_tf32 moves it by shuffles.
 
 #pragma once
 
@@ -54,43 +44,10 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                              const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ float round_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
-}
-
-__device__ __forceinline__ uint32_t fbits(float x) { return __float_as_uint(x); }
-
-// a bf16 value as a TF32 operand (exact: bf16 is TF32 with fewer mantissa bits)
-__device__ __forceinline__ uint32_t tf32_bits(__nv_bfloat16 x) {
-  return fbits(__bfloat162float(x));
-}
-
-// mma.sync TF32 A fragment (16 x 8) of one n8 accumulator tile, rounded
-// with cvt.rna: column c of row g sits in lane 4g + c/2, element c%2 (2 + c%2 for row g+8)
-__device__ __forceinline__ void acc_to_a_tf32(uint32_t (&a)[4], const float (&acc)[4],
-                                              int lane) {
-  const int src = (lane & ~3) | ((lane & 3) >> 1);  // holds column t4; src + 2: t4 + 4
-  const bool odd = lane & 1;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const float x0 = __shfl_sync(0xffffffffu, acc[0], src + 2 * half);
-    const float x1 = __shfl_sync(0xffffffffu, acc[1], src + 2 * half);
-    const float y0 = __shfl_sync(0xffffffffu, acc[2], src + 2 * half);
-    const float y1 = __shfl_sync(0xffffffffu, acc[3], src + 2 * half);
-    a[2 * half] = fbits(round_tf32(odd ? x1 : x0));
-    a[2 * half + 1] = fbits(round_tf32(odd ? y1 : y0));
-  }
 }
 
 // two floats -> bf16x2, `lo` in the low half (the smaller column index)

@@ -10,13 +10,13 @@ scripts/attn_multihead_bench.py.
 v0_production_e2e is the prototype's production path: split q, k, v to
 (B*H, S, D), K3's function with fp32 operands (S3, `prod_flash`), merge; the
 copies are inside the timed window.  The v8 variants run S4
-(`v8_multihead`), one block per (batch, q tile) for all heads.  Both sides
-contract fp32 operands, as the prototype's two kernels do: on the card the
-TF32 tensor cores (S3 on the narrow kernel's TF32 mode, which sizes its own
-tiles).  `card_tile` maps S4's TPU block sizes onto the multi-head kernel's
-tiles: block_q 512 / 256 -> 2 / 1 warps per head (32 / 16 query rows),
-block_k 1024 / 2048 / 4096 -> 32 / 64 / 96 keys per staged tile (128 keys of
-8 heads would not fit shared memory beside 32 query rows).
+(`v8_multihead`), one block per (batch, query block) walking all heads.
+Both sides contract fp32 operands, as the prototype's two kernels do: on the
+card the TF32 tensor cores (S3 on the narrow kernel's TF32 mode, S4 on its
+all-heads block in the same mode; each sizes its own tiles).  `card_tile`
+maps S4's TPU block sizes onto the all-heads block's one tile, 128 query
+rows a block and 128 keys a staged tile (fa.MULTIHEAD_TILE): the four v8
+variants run the same kernel.
 """
 
 from __future__ import annotations
@@ -27,8 +27,12 @@ from . import D, H, make_input, merge, parse_args, run_variants, split
 from ..ops import flash_attention as fa
 
 def card_tile(block_q: int, block_k: int):
-    """(warps per head, keys per staged tile) for a TPU (block_q, block_k)."""
-    return {512: 2, 256: 1}[block_q], {1024: 32, 2048: 64, 4096: 96}[block_k]
+    """The card tile (query rows a block, keys a staged tile) for a TPU
+    (block_q, block_k) of the prototype: the all-heads block's one tile for
+    each of its pairs."""
+    if block_q not in (512, 256) or block_k not in (1024, 2048, 4096):
+        raise KeyError((block_q, block_k))
+    return fa.MULTIHEAD_TILE
 
 
 def variants() -> dict:

@@ -20,13 +20,14 @@ The kernels take bf16 and fp32 operands, as the Pallas kernels do.  fp32
 products run on the TF32 tensor cores with fp32 accumulation, whatever
 torch.backends.cuda.matmul.allow_tf32 says: forward calls up to head dim 128
 on the TF32 mode of the narrow kernel, after a prep kernel that writes V
-transposed (`flash_attention_tf32_prep`); the forward above head dim 128 (K3
-at the VAE's d = 512) on csrc/flash_attention_fp32.cu (mma.sync TF32); the
-backward (K4a / K4b) after a prep kernel that writes K, Q and dO transposed
-and D (`flash_attention_bwd_tf32_prep`), up to head dim 128 on the TF32 mode
-of the narrow backward and above it on csrc/flash_attention_bwd_tf32.cu
-(materialized scores and TF32 GEMMs).  `fwd_library` / `bwd_library` are
-the routing rule, by head dim and dtype; any other dtype raises.
+transposed (`flash_attention_tf32_prep`); the backward (K4a / K4b) after a
+prep kernel that writes K, Q and dO transposed and D
+(`flash_attention_bwd_tf32_prep`), up to head dim 128 on the TF32 mode of
+the narrow backward; above head dim 128, forward (K3 at the VAE's d = 512)
+and backward, on csrc/flash_attention_bwd_tf32.cu (materialized scores and
+TF32 GEMMs; the forward's V^T from the backward's prep kernel).
+`fwd_library` / `bwd_library` are the routing rule, by head dim and dtype;
+any other dtype raises.
 
 The two Pallas backward kernels are two CUDA kernels behind
 ``flash_attention_bwd_dq`` (K4a) and ``flash_attention_bwd_dkv`` (K4b): up to
@@ -60,9 +61,9 @@ microbenchmarks (eta_inversion_tpu_torch/microbench), never by a served path:
 for the fp32-operand products of S1 (``flash`` in scripts/flash_sweep.py) and
 S3 (``prod_flash`` in scripts/attn_multihead_bench.py), the narrow kernel's
 TF32 mode on bf16 operands; ``flash_attention_multihead`` is S4
-(``v8_multihead`` there), one block per (batch, q tile) for all heads
-(csrc/flash_multihead.cu), with bf16 or, as the prototype, fp32 (TF32)
-operands.
+(``v8_multihead`` there), one block per (batch, 128 query rows) walking
+all heads (the narrow kernel's all-heads block), with bf16 or, as the
+prototype, fp32 (TF32) products.
 
 The dispatchers `attention` / `attention_packed` gate on device and shape, as
 the JAX ones do: long self-attention on the card goes to the wrappers (which
@@ -96,8 +97,9 @@ LAUNCHES: Dict[str, int] = {
     # the narrow kernel's TF32 mode, and its prep kernel's launches
     "flash_attention_narrow_tf32": 0,
     "flash_attention_tf32_prep": 0,
-    # of the forward (K3) launches, those on flash_attention_fp32.cu (fp32
-    # above head dim 128)
+    # of the forward (K3) launches, the fp32 ones above head dim 128: one a
+    # call of the route's kernels in flash_attention_bwd_tf32.cu (V^T prep,
+    # then per query stripe the scores and the P V GEMM)
     "flash_attention_fwd_fp32": 0,
     # of the K4a / K4b launches, the fp32 ones: on the narrow backward's TF32
     # mode (head dims up to 128) and on flash_attention_bwd_tf32.cu (above
@@ -130,31 +132,28 @@ _i64 = ctypes.c_longlong
 _LIBS = (("eti_flash_attention", ("flash_attention.cu",)),
          ("eti_flash_attention_bwd", ("flash_attention_bwd.cu",)),
          ("eti_crossk_attention", ("crossk_attention.cu",)),
-         ("eti_flash_multihead", ("flash_multihead.cu",)),
          ("eti_flash_attention_wide", ("flash_attention_wide.cu",)),
          ("eti_flash_attention_narrow", ("flash_attention_narrow.cu",)),
          ("eti_flash_attention_bwd_narrow", ("flash_attention_bwd_narrow.cu",)),
-         ("eti_flash_attention_fp32", ("flash_attention_fp32.cu",)),
          ("eti_flash_attention_bwd_tf32", ("flash_attention_bwd_tf32.cu",)))
-_loaded: Optional[Tuple[ctypes.CDLL, ...]] = None
+_loaded: Optional[Dict[str, ctypes.CDLL]] = None
 
 
-def build_kernels() -> Tuple[ctypes.CDLL, ...]:
+def build_kernels() -> Dict[str, ctypes.CDLL]:
     """Build (at first use, one nvcc per source, side by side) and load the
-    tiled forward, wide backward, short-K, multi-head, wide forward, narrow
-    forward, narrow backward, fp32 forward and TF32 wide backward attention
-    kernel libraries, in `_LIBS`' order."""
+    tiled forward, wide backward, short-K, wide forward, narrow forward,
+    narrow backward and TF32 wide attention kernel libraries: {name in
+    `_LIBS`: library}."""
     global _loaded
     if _loaded is None:
         from .cuda_build import load_libraries
 
-        libs = load_libraries(_LIBS)
-        fwd, bwd, crossk, multihead, wide, narrow, bwd_narrow, fp32, bwd_tf32 = libs
+        libs = dict(zip((name for name, _ in _LIBS), load_libraries(_LIBS)))
+        fwd, bwd, crossk, wide, narrow, bwd_narrow, bwd_tf32 = libs.values()
         fn = fwd.eti_flash_attention_fwd
         fn.argtypes = [_ptr] * 5 + [_i32] * 7 + [_i64] * 14 + [ctypes.c_float, _ptr]
         fn.restype = _i32
-        for fn in (wide.eti_flash_attention_wide_fwd, narrow.eti_flash_attention_narrow_fwd,
-                   fp32.eti_flash_attention_fp32_fwd):
+        for fn in (wide.eti_flash_attention_wide_fwd, narrow.eti_flash_attention_narrow_fwd):
             fn.argtypes = [_ptr] * 5 + [_i32] * 5 + [_i64] * 14 + [ctypes.c_float, _ptr]
             fn.restype = _i32
         fn = narrow.eti_flash_attention_narrow_tf32_fwd
@@ -185,11 +184,14 @@ def build_kernels() -> Tuple[ctypes.CDLL, ...]:
         fn.argtypes = [_i32] + [_ptr] * 6 + [_i32] * 7 + [strides, ctypes.c_float,
                                                            ctypes.c_float, _i32, _ptr]
         fn.restype = _i32
+        fn = bwd_tf32.eti_flash_attention_fwd_tf32_pv
+        fn.argtypes = [_ptr] * 5 + [_i32] * 6 + [strides] + [_i64] * 2 + [_ptr]
+        fn.restype = _i32
         fn = crossk.eti_crossk_attention
         fn.argtypes = [_ptr] * 4 + [_i32] * 4 + [_i64] * 8 + [ctypes.c_float, _ptr]
         fn.restype = _i32
-        fn = multihead.eti_flash_multihead
-        fn.argtypes = [_ptr] * 4 + [_i32] * 8 + [_i64] * 8 + [ctypes.c_float, _ptr]
+        fn = narrow.eti_flash_attention_narrow_heads_fwd
+        fn.argtypes = [_ptr] * 4 + [_i32] * 7 + [_i64] * 8 + [ctypes.c_float, _ptr]
         fn.restype = _i32
         _loaded = libs
     return _loaded
@@ -200,7 +202,7 @@ def build_kernels() -> Tuple[ctypes.CDLL, ...]:
 # flash_attention_narrow.cu, bf16 or fp32 (its TF32 mode), with a positive
 # scale (it folds the scale into the exponent's FFMA), and d in (128, 512]
 # on flash_attention_wide.cu, bf16 (Q and two K/V stages take 192 KB at d =
-# 512), or flash_attention_fp32.cu, fp32; the backward takes d <= 128 on
+# 512), or flash_attention_bwd_tf32.cu, fp32; the backward takes d <= 128 on
 # flash_attention_bwd_narrow.cu (bf16, or fp32 on its TF32 mode) and d in
 # (128, 512] on flash_attention_bwd.cu, bf16, which keeps the dQ / dK + dV
 # rows in shared memory (194 KB for dQ and 226 KB for dK + dV at d = 512 of
@@ -301,9 +303,10 @@ TILED_LIB, NARROW_LIB, WIDE_LIB = ("eti_flash_attention", "eti_flash_attention_n
                                    "eti_flash_attention_wide")
 # the narrow kernel's TF32 mode, a route of NARROW_LIB's library
 NARROW_TF32 = "eti_flash_attention_narrow (tf32)"
-# fp32 operands where the TF32 mode does not reach: the forward above head
-# dim 128 (names in _LIBS)
-FP32_LIB = "eti_flash_attention_fp32"
+# fp32 operands where the TF32 mode does not reach, the forward above head
+# dim 128: materialized scores and a TF32 GEMM, a route of the library of
+# the fp32 backward above 128 (BWD_TF32_LIB)
+FWD_TF32_WIDE = "eti_flash_attention_bwd_tf32 (forward)"
 
 
 def _check_dtype(dtype: torch.dtype) -> None:
@@ -316,9 +319,10 @@ def fwd_library(d: int, tf32: bool = False, tile: Optional[Tuple[int, int]] = No
     """The route a forward call of head dim `d` with operands of `dtype`
     takes on the card.  fp32 operands, or bf16 ones with `tf32` (S1 / S3's
     fp32 products), go to the narrow kernel's TF32 mode up to
-    NARROW_MAX_HEAD_DIM; above it fp32 operands go to
-    flash_attention_fp32.cu.  bf16: a chosen tile to the mma.sync kernel
-    (flash_attention.cu), every other call to the wgmma kernel of its width,
+    NARROW_MAX_HEAD_DIM; above it fp32 operands go to the forward of
+    flash_attention_bwd_tf32.cu (FWD_TF32_WIDE).  bf16: a chosen tile to
+    the mma.sync kernel (flash_attention.cu), every other call to the wgmma
+    kernel of its width,
     flash_attention_narrow.cu up to NARROW_MAX_HEAD_DIM and
     flash_attention_wide.cu above it.  ValueError for what no kernel takes: a
     tile with TF32 products or above NARROW_MAX_HEAD_DIM, bf16 operands with
@@ -330,7 +334,7 @@ def fwd_library(d: int, tf32: bool = False, tile: Optional[Tuple[int, int]] = No
                          f"with tile {tile} and {'fp32' if tf32 else 'bf16'} products")
     if d > NARROW_MAX_HEAD_DIM:
         if dtype == torch.float32:
-            return FP32_LIB
+            return FWD_TF32_WIDE
         if tf32:
             raise ValueError(f"flash attention kernel: the kernel does not take head dim {d} "
                              "with fp32 products of bfloat16 operands")
@@ -378,6 +382,8 @@ def _fwd_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool,
     route = fwd_library(d, tf32, tile, q.dtype)
     if route == NARROW_TF32:
         out = _tf32_launch(q, k, v, scale, heads, need_lse)
+    elif route == FWD_TF32_WIDE:
+        out = _tf32_wide_launch(q, k, v, scale, heads, need_lse)
     else:
         out = _kernel_launch(q, k, v, scale, heads, need_lse, route, tile)
     if counter is not None:
@@ -387,11 +393,10 @@ def _fwd_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool,
 
 def _kernel_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool, route: str,
                    tile: Optional[Tuple[int, int]]):
-    """The forward on the library `route` names: bf16 on TILED_LIB,
-    NARROW_LIB or WIDE_LIB, fp32 on FP32_LIB (counted on its own key too)."""
+    """The bf16 forward on the library `route` names: TILED_LIB, NARROW_LIB
+    or WIDE_LIB."""
     batch, h, d = _layout(q, heads)
-    fp32 = route == FP32_LIB
-    _check_qkv(q, k, v, heads, (torch.float32,) if fp32 else BF16)
+    _check_qkv(q, k, v, heads)
     sq, sk = q.shape[1], k.shape[1]
     _check_grid(batch, h, sq, sk)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -400,23 +405,20 @@ def _kernel_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool, 
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    libs = build_kernels()
+    lib = build_kernels()[route]
     if route == TILED_LIB:
-        err = libs[0].eti_flash_attention_fwd(
+        err = lib.eti_flash_attention_fwd(
             *ptrs, batch, h, sq, sk, d, *(tile or (0, 0)), *flat, *lse_st, float(scale), stream)
         if err:  # the message is built only for a refused launch (a hot path)
             _launched(err, "flash attention kernel", f"head dim {d} with tile {tile}")
     else:
-        fn = (libs[5].eti_flash_attention_narrow_fwd if route == NARROW_LIB
-              else libs[7].eti_flash_attention_fp32_fwd if fp32
-              else libs[4].eti_flash_attention_wide_fwd)
+        fn = (lib.eti_flash_attention_narrow_fwd if route == NARROW_LIB
+              else lib.eti_flash_attention_wide_fwd)
         err = fn(*ptrs, batch, h, sq, sk, d, *flat, *lse_st, float(scale), stream)
         if err:
             _launched(err, f"flash attention kernel ({route})",
                       f"head dim {d}, scale {scale} with strides "
                       f"{[x.stride() for x in (q, k, v)]}")
-        if fp32:
-            LAUNCHES["flash_attention_fwd_fp32"] += 1
     return o, lse
 
 
@@ -447,7 +449,7 @@ def _tf32_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool):
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse, lse_st = _lse_out(q, heads, batch, h, sq, need_lse)
     flat = [s for x in (qf, kf, o) for s in _strides(x, heads, d)]
-    err = build_kernels()[5].eti_flash_attention_narrow_tf32_fwd(
+    err = build_kernels()[NARROW_LIB].eti_flash_attention_narrow_tf32_fwd(
         qf.data_ptr(), kf.data_ptr(), vt.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(), batch, h, sq, sk, d, vt.shape[-1],
         int(q.dtype == torch.bfloat16), *flat, *lse_st, float(scale),
@@ -520,7 +522,7 @@ def flash_attention_tf32_prep(q, k, v, heads: Optional[int] = None):
     qf, kf = ((torch.empty(x.shape, dtype=torch.float32, device=q.device) for x in (q, k))
               if widen else (q, k))
     strides = [s for x in (q, k, v, qf, kf) for s in _strides(x, heads, d)]
-    err = build_kernels()[5].eti_flash_attention_tf32_prep(
+    err = build_kernels()[NARROW_LIB].eti_flash_attention_tf32_prep(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qf.data_ptr() if widen else None,
         kf.data_ptr() if widen else None, vt.data_ptr(), batch, h, sq, sk, d, spad, int(widen),
         *strides, torch.cuda.current_stream(q.device).cuda_stream)
@@ -528,6 +530,100 @@ def flash_attention_tf32_prep(q, k, v, heads: Optional[int] = None):
         _launched(err, "TF32 prep kernel", f"head dim {d} with {q.dtype} operands")
     LAUNCHES["flash_attention_tf32_prep"] += 1
     return qf, kf, vt
+
+
+# ---------------------------------------------------------------------------
+# fp32 above head dim 128: K3 on materialized scores (flash_attention_bwd_tf32.cu)
+# ---------------------------------------------------------------------------
+
+def fwd_tf32_stripe(sq: int, sk: int, bh: int) -> int:
+    """Queries a stripe of the fp32 forward above head dim 128 holds: its
+    (BH, stripe, Sk) fp32 scores within BWD_TF32_SCRATCH_BYTES, sized as
+    `bwd_tf32_stripe` sizes one score array."""
+    return bwd_tf32_stripe(sq, sk, bh, 1)
+
+
+def _tf32_wide_launch(q, k, v, scale: float, heads: Optional[int], need_lse: bool):
+    """K3 for fp32 operands above head dim 128 (FWD_TF32_WIDE): V^T from the
+    fp32 backward's prep kernel (as `tf32_transpose_plain` gives it), then
+    per query stripe the scores kernel's forward mode (the scores in the
+    log2 domain and each row's partials per 128-key tile) and the TF32 GEMM
+    O = P V, which merges the partials into L (the LSE) and forms P =
+    exp2(S - L) into its A fragments.  One count of flash_attention_fwd_fp32
+    a call."""
+    batch, h, d = _layout(q, heads)
+    _check_qkv(q, k, v, heads, (torch.float32,))
+    sq, sk = q.shape[1], k.shape[1]
+    _check_grid(batch, h, sq, sk)
+    bh, skpad = batch * h, -(-sk // 8) * 8
+    vt = _bwd_tf32_prep_launch(q, v, q, None, heads, kt=True, qdot=False)[0]
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse, lse_st = _lse_out(q, heads, batch, h, sq, need_lse)
+    stripe = fwd_tf32_stripe(sq, sk, bh)
+    scores = torch.empty((bh, stripe, skpad), dtype=torch.float32, device=q.device)
+    part = torch.empty((bh, stripe, -(-skpad // BWD_TF32_TILE), 2), dtype=torch.float32,
+                       device=q.device)
+    strides = _bwd_strides((q, k, None, o, None, None, None, None), heads, d, lse_st)
+    c_st = (ctypes.c_longlong * 3)(*_strides(o, heads, d))
+    lse_ptr = None if lse is None else lse.data_ptr()
+    lib = build_kernels()[BWD_TF32_LIB]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    for start in range(0, sq, stripe):
+        count = min(stripe, sq - start)
+        o_rows = o.data_ptr() + start * o.stride(1) * o.element_size()
+        err = lib.eti_flash_attention_bwd_tf32_scores(
+            2, q.data_ptr(), k.data_ptr(), None, None, None, None, scores.data_ptr(),
+            part.data_ptr(), batch, h, sq, sk, d, start, count, skpad, strides, float(scale),
+            stream)
+        if not err:
+            err = lib.eti_flash_attention_fwd_tf32_pv(
+                scores.data_ptr(), part.data_ptr(), vt.data_ptr(), o_rows, lse_ptr, batch, h,
+                count, d, skpad, start, c_st, *lse_st, stream)
+        if err:
+            _launched(err, f"flash attention kernel ({FWD_TF32_WIDE})",
+                      f"head dim {d}, scale {scale} with strides "
+                      f"{[x.stride() for x in (q, k, v)]}")
+    LAUNCHES["flash_attention_fwd_fp32"] += 1
+    return o, lse
+
+
+def flash_attention_fwd_striped_plain(q, k, v, scale: float, stripe: int):
+    """The arithmetic of the fp32 forward above head dim 128
+    (flash_attention_bwd_tf32.cu) in plain fp32 over flat (BH, S, D)
+    operands, without its TF32 roundings: a stripe of `stripe` query rows at
+    a time, the scores in the log2 domain with each 8-key group in
+    TF32_KEY_ORDER (-inf past Sk, up to Sk rounded up to 8), each row's
+    (max, sum of exp2) over each BWD_TF32_TILE keys merged into L, P =
+    exp2(S - L), and O = P V^T with V^T in the same key order.  Returns (o,
+    lse (BH, 1, S)), `_flash_fwd_impl`'s contract."""
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    bh, sq, d = qf.shape
+    sk = kf.shape[1]
+    skpad = -(-sk // 8) * 8
+    ntiles = -(-skpad // BWD_TF32_TILE)
+    dev = qf.device
+    order = torch.tensor(TF32_KEY_ORDER, device=dev)
+    perm = torch.arange(skpad, device=dev) // 8 * 8 + order.repeat(skpad // 8)  # position -> key
+    vt = torch.zeros((bh, skpad, d), device=dev)
+    vt[:, :sk] = vf
+    vt = vt[:, perm].transpose(1, 2)
+    o = torch.empty((bh, sq, d), device=dev)
+    lse = torch.empty((bh, sq), device=dev)
+    for start in range(0, sq, stripe):
+        rows = slice(start, start + stripe)
+        n = qf[:, rows].shape[1]
+        s2 = torch.full((bh, n, ntiles * BWD_TF32_TILE), -torch.inf, device=dev)
+        s2[..., :sk] = torch.einsum("bqd,bkd->bqk", qf[:, rows], kf) * (scale * LOG2E)
+        s2[..., :skpad] = s2[..., perm]
+        tiles = s2.view(bh, n, ntiles, BWD_TF32_TILE)
+        m = tiles.amax(-1)
+        l = torch.exp2(tiles - m[..., None]).sum(-1)  # noqa: E741
+        top = m.amax(-1)
+        l2 = top + torch.log2((l * torch.exp2(m - top[..., None])).sum(-1))
+        p = torch.exp2(s2[..., :skpad] - l2[..., None])
+        o[:, rows] = torch.einsum("bqk,bdk->bqd", p, vt)
+        lse[:, rows] = l2 / LOG2E
+    return o, lse[:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -726,39 +822,51 @@ def flash_attention_bhsd_tiled(q, k, v, scale: float, operands: str = "bf16",
     return o
 
 
+# S4's all-heads block (the narrow kernel's HEADS mode): (query rows a
+# block, keys a staged tile), the one tile it has
+MULTIHEAD_TILE = (128, 128)
+
+
 def flash_attention_multihead(q, k, v, scale: float, heads: int, operands: str = "bf16",
                               tile: Optional[Tuple[int, int]] = None):
     """K1's function over packed (B, S, H*D) inputs, as the Pallas prototype
-    S4 computes it: one block per (batch, q tile) walks all heads, K / V
-    tiles staged once for every head.  operands "bf16" are K1's products,
-    "fp32" the prototype's own (TF32 tensor cores).  `tile` is (warps per
-    head, keys per staged tile), (2, 64), (1, 64), (2, 32) or (2, 96); None
-    for (2, 64).  For the attention microbenchmarks (no served path launches
-    it); no gradient.  On the card it takes bf16, the microbenchmarks' head
-    dim (d of 33-48: SD's 40), and as many heads as its 512 threads and
-    shared memory hold, and raises otherwise; a CPU tensor takes the plain
-    version."""
+    S4 computes it: one block per (batch, 128 query rows) walks all heads
+    (the all-heads block of flash_attention_narrow.cu), its ring of K / V
+    tiles running on from one head to the next.  operands "bf16" are K1's
+    products, "fp32" the prototype's own: the TF32 mode, after its prep
+    kernel (q, k widened, V^T).  `tile` is (query rows a block, keys a
+    staged tile): the block has MULTIHEAD_TILE only, None for it.  For the
+    attention microbenchmarks (no served path launches it); no gradient.  On
+    the card it takes bf16, the microbenchmarks' head dim (d of 33-48: SD's
+    40) with any number of heads, and raises otherwise (another tile too); a
+    CPU tensor takes the plain version."""
     if operands not in ("bf16", "fp32"):
         raise ValueError(f"operands {operands!r}: 'bf16' or 'fp32'")
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, scale, heads)
+    if tile is not None and tuple(tile) != MULTIHEAD_TILE:
+        raise ValueError(f"multi-head attention kernel: the kernel does not take tile {tile}, "
+                         f"its block is {MULTIHEAD_TILE} (query rows, keys a staged tile)")
     batch, h, d = _layout(q, heads)
     _check_head_dim(d)
     _check_qkv(q, k, v, heads)
     sq, sk = q.shape[1], k.shape[1]
     _check_grid(batch, 1, sq, sk)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lib = build_kernels()[3]
-    err = lib.eti_flash_multihead(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), batch, h, sq, sk, d,
-        int(operands == "fp32"), *(tile or (0, 0)),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+    tf32 = operands == "fp32"
+    if tf32:
+        qf, kf, vt = flash_attention_tf32_prep(q, k, v, heads)
+        ops, spad, v_st = (qf, kf, vt), vt.shape[-1], (0, 0)
+    else:
+        ops, spad, v_st = (q, k, v), 0, (v.stride(0), v.stride(1))
+    err = build_kernels()[NARROW_LIB].eti_flash_attention_narrow_heads_fwd(
+        *(x.data_ptr() for x in ops), o.data_ptr(), batch, h, sq, sk, d, spad, int(tf32),
+        ops[0].stride(0), ops[0].stride(1), ops[1].stride(0), ops[1].stride(1), *v_st,
         o.stride(0), o.stride(1), float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _launched(err, "multi-head attention kernel",
-              f"{h} heads of d={d} with tile {tile} and {operands} operands "
-              "(threads, shared memory or head dim)")
-    LAUNCHES["flash_attention_multihead_tf32" if operands == "fp32"
-             else "flash_attention_multihead"] += 1
+    if err:
+        _launched(err, "multi-head attention kernel",
+                  f"{h} heads of d={d} with {operands} operands, scale {scale}")
+    LAUNCHES["flash_attention_multihead_tf32" if tf32 else "flash_attention_multihead"] += 1
     return o
 
 
@@ -802,8 +910,8 @@ def _bwd_fn(lib: str, which: str):
     library `lib`."""
     libs = build_kernels()
     if lib == BWD_NARROW_LIB:
-        return getattr(libs[6], f"eti_flash_attention_bwd_narrow_{which}")
-    return getattr(libs[1], f"eti_flash_attention_bwd_{which}")
+        return getattr(libs[BWD_NARROW_LIB], f"eti_flash_attention_bwd_narrow_{which}")
+    return getattr(libs[BWD_LIB], f"eti_flash_attention_bwd_{which}")
 
 
 # of a backward route's launches, the LAUNCHES key that counts them apart
@@ -843,6 +951,15 @@ def flash_attention_bwd_tf32_prep(q, k, do, o=None, heads: Optional[int] = None,
         out = bwd_tf32_prep_plain(q, k, do, o, heads)
         return (out[0] if kt else None, out[1] if qdot else None,
                 out[2] if qdot else None, out[3])
+    out = _bwd_tf32_prep_launch(q, k, do, o, heads, kt, qdot)
+    LAUNCHES["flash_attention_bwd_tf32_prep"] += 1
+    return out
+
+
+def _bwd_tf32_prep_launch(q, k, do, o, heads: Optional[int], kt: bool, qdot: bool):
+    """flash_attention_bwd_tf32_prep's launch on the card, not counted: the
+    fp32 forward above head dim 128 also takes its V^T from it (the K^T
+    slot) and counts it among its own kernels."""
     batch, h, d = _layout(q, heads)
     _check_head_dim(d)
     f32 = (torch.float32,)
@@ -861,14 +978,13 @@ def flash_attention_bwd_tf32_prep(q, k, do, o=None, heads: Optional[int] = None,
     dvec = torch.empty((batch * h, sq), dtype=torch.float32, device=q.device) \
         if o is not None else None
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    err = build_kernels()[6].eti_flash_attention_bwd_tf32_prep(
+    err = build_kernels()[BWD_NARROW_LIB].eti_flash_attention_bwd_tf32_prep(
         q.data_ptr(), k.data_ptr(), do.data_ptr(), ptr(o), ptr(kt_), ptr(qt_), ptr(dot_),
         ptr(dvec), batch, h, sq, sk, d, sqpad, skpad,
         _bwd_strides((q, k, None, o, do, None, None, None), heads, d),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _launched(err, "TF32 backward prep kernel", f"head dim {d}")
-    LAUNCHES["flash_attention_bwd_tf32_prep"] += 1
     return kt_, qt_, dot_, dvec
 
 
@@ -939,7 +1055,7 @@ def _bwd_dq_tf32(q, k, v, o, lse, do, scale, heads, lib, prep):
     what = f"flash attention dQ kernel ({lib})"
     args = f"head dim {d}, scale {scale} with strides {[x.stride() for x in (q, k, v)]}"
     if lib == BWD_NARROW_TF32:
-        err = libs[6].eti_flash_attention_bwd_narrow_tf32_dq(
+        err = libs[BWD_NARROW_LIB].eti_flash_attention_bwd_narrow_tf32_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), kt.data_ptr(),
             lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), batch, h, sq, sk, d, skpad,
             strides, float(scale), stream)
@@ -951,12 +1067,12 @@ def _bwd_dq_tf32(q, k, v, o, lse, do, scale, heads, lib, prep):
         c_st = (ctypes.c_longlong * 6)(*_strides(dq, heads, d), 0, 0, 0)
         for start in range(0, sq, stripe):
             count = min(stripe, sq - start)
-            err = libs[8].eti_flash_attention_bwd_tf32_scores(
+            err = libs[BWD_TF32_LIB].eti_flash_attention_bwd_tf32_scores(
                 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 dvec.data_ptr(), ds.data_ptr(), None, batch, h, sq, sk, d, start, count, skpad,
                 strides, float(scale), stream)
             if not err:
-                err = libs[8].eti_flash_attention_bwd_tf32_gemm(
+                err = libs[BWD_TF32_LIB].eti_flash_attention_bwd_tf32_gemm(
                     1, ds.data_ptr(), kt.data_ptr(),
                     dq.data_ptr() + start * dq.stride(1) * dq.element_size(), None, None, None,
                     batch, h, count, d, skpad, skpad, 0, c_st, float(scale), 0.0, 0, stream)
@@ -986,7 +1102,7 @@ def _bwd_dkv_tf32(q, k, v, lse, do, dvec, scale, heads, lib, prep):
     what = f"flash attention dK/dV kernel ({lib})"
     args = f"head dim {d}, scale {scale} with strides {[x.stride() for x in (q, k, v)]}"
     if lib == BWD_NARROW_TF32:
-        err = libs[6].eti_flash_attention_bwd_narrow_tf32_dkv(
+        err = libs[BWD_NARROW_LIB].eti_flash_attention_bwd_narrow_tf32_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), qt.data_ptr(),
             dot.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             batch, h, sq, sk, d, sqpad, strides, float(scale), stream)
@@ -1001,12 +1117,12 @@ def _bwd_dkv_tf32(q, k, v, lse, do, dvec, scale, heads, lib, prep):
         for start in range(0, sq, stripe):
             count = min(stripe, sq - start)
             width = -(-count // 8) * 8
-            err = libs[8].eti_flash_attention_bwd_tf32_scores(
+            err = libs[BWD_TF32_LIB].eti_flash_attention_bwd_tf32_scores(
                 1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 dvec.data_ptr(), pt.data_ptr(), dst.data_ptr(), batch, h, sq, sk, d, start,
                 count, width, strides, float(scale), stream)
             if not err:
-                err = libs[8].eti_flash_attention_bwd_tf32_gemm(
+                err = libs[BWD_TF32_LIB].eti_flash_attention_bwd_tf32_gemm(
                     2, pt.data_ptr(), dot.data_ptr(), dv.data_ptr(), dst.data_ptr(),
                     qt.data_ptr(), dk.data_ptr(), batch, h, sk, d, width, sqpad, start, c_st,
                     1.0, float(scale), int(start > 0), stream)
@@ -1131,7 +1247,7 @@ def crossk_attention_bhsd(q, k, v, sk: int, scale: float, block_q: int = 1024):
         raise ValueError("q, k, v on different devices")
     _check_grid(bh, 1, sq, sk)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lib = build_kernels()[2]
+    lib = build_kernels()["eti_crossk_attention"]
     err = lib.eti_crossk_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, sq, sk, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),

@@ -18,10 +18,9 @@ API:
 Only bucket 1 is ported, so --max_batch defaults to 1 (larger values are
 refused) and --max_wait_ms, kept for the CLI's sake, has nothing to coalesce.
 --dtype is bfloat16 (the default) or float32: on the card fp32 attention
-runs on the TF32 tensor cores, the forward up to head dim 128 on the TF32
-mode of the narrow kernel and above it, with the backward, on
-csrc/flash_attention_fp32.cu (ops/flash_attention.py).  Weights are a seeded
-random init.
+runs on the TF32 tensor cores: up to head dim 128 on the TF32 modes of the
+narrow forward and backward, above it on csrc/flash_attention_bwd_tf32.cu
+(ops/flash_attention.py).  Weights are a seeded random init.
 """
 
 from __future__ import annotations

@@ -3,13 +3,13 @@ forward kernels (K1-K3: the narrow wgmma kernel up to head dim 128, the wide
 one above) with their LSE, the narrow kernel's TF32 mode (fp32 operands) and
 its prep kernel, the backward kernels (K4a dQ, K4b dK/dV: the narrow wgmma
 kernels up to head dim 128, the mma.sync ones above it up to 512), the fp32
-forward above head dim 128 (flash_attention_fp32.cu), the fp32 backward's
-TF32 routes (the narrow backward's TF32 mode up to 128,
-flash_attention_bwd_tf32.cu above) and their prep kernel, autograd through
-the dispatchers, the short-K
+forward above head dim 128 (scores, softmax pass and TF32 GEMM in
+flash_attention_bwd_tf32.cu), the fp32 backward's TF32 routes (the narrow
+backward's TF32 mode up to 128, flash_attention_bwd_tf32.cu above) and
+their prep kernel, autograd through the dispatchers, the short-K
 cross-attention kernel (K5), the fused GEGLU kernel (K6) with its
 autograd.Function, and the microbenchmarks' kernels: the tiled flat kernel
-and the TF32 mode (S1, S3) and the multi-head kernel (S4).
+and the TF32 mode (S1, S3) and the narrow kernel's all-heads block (S4).
 
 Marked `cuda`; each test skips without a card (a CUDA kernel has no CPU
 mode).  Imports neither JAX nor tests/conftest.py's fixtures, so it runs on a
@@ -766,40 +766,53 @@ def test_cuda_fp32_autograd_through_the_tf32_forward(packed, d, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("need_lse", [False, True])
-@pytest.mark.parametrize("kind,b,s,h,d", [
-    ("flat", 2, 1024, 1, 136), ("flat", 2, 1000, 1, 200),  # ragged S, d padded to 256
-    ("flat", 1, 1024, 1, 256), ("flat", 2, 4096, 1, 512),  # the VAE decode at 512 px
-    ("flat", 1, 1033, 1, 512),                              # ragged at d = 512
-    ("packed", 2, 1024, 2, 160),                            # head strides
+@pytest.mark.parametrize("kind,b,s,h,d,scratch", [
+    ("flat", 2, 1024, 1, 136, None), ("flat", 2, 1000, 1, 200, None),  # ragged S
+    ("flat", 1, 1024, 1, 160, None), ("flat", 2, 1024, 1, 160, None),  # d = 160, BH 1 and 2
+    ("flat", 1, 1024, 1, 256, None),
+    ("flat", 1, 4096, 1, 512, None),   # the VAE encode at 512 px
+    ("flat", 2, 4096, 1, 512, None),   # the VAE decode at 512 px
+    ("flat", 1, 1033, 1, 512, None),   # ragged at d = 512
+    ("flat", 2, 1033, 1, 512, 1 << 20),  # 9 stripes of 128 queries, the last ragged
+    ("packed", 2, 1024, 2, 160, None),   # head strides
+    ("packed", 1, 1000, 2, 256, 1 << 20),  # head strides, 8 stripes
 ])
-def test_cuda_fp32_wide_forward_matches_plain(kind, b, s, h, d, need_lse):
-    """fp32 above head dim 128 (K3 at the VAE mid-block's d = 512) on
-    flash_attention_fp32.cu, with its LSE: within 2% of the fp32 plain
-    version's largest magnitude, the LSE within LSE_TF32_TOL, the launch
-    counted on the wrapper's key and the fp32 one."""
+def test_cuda_fp32_wide_forward_matches_plain(kind, b, s, h, d, scratch, need_lse,
+                                              monkeypatch):
+    """fp32 above head dim 128 (K3 at the VAE mid-block's d = 512) on the
+    forward of flash_attention_bwd_tf32.cu, with its LSE, in one stripe or
+    several (`scratch`: a smaller score budget): within 2% of the fp32 plain
+    version's largest magnitude, the LSE within LSE_TF32_TOL, two calls
+    bitwise equal, the launch counted on the wrapper's key and the fp32 one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    assert tfa.fwd_library(d, dtype=torch.float32) == tfa.FP32_LIB
+    assert tfa.fwd_library(d, dtype=torch.float32) == tfa.FWD_TF32_WIDE
+    if scratch:
+        monkeypatch.setattr(tfa, "BWD_TF32_SCRATCH_BYTES", scratch)
     q, k, v = _fp32_inputs((b, s, h * d) if kind == "packed" else (b, s, d), seed=d + s)
     scale = d ** -0.5
     tfa.reset_launch_counts()
     if kind == "packed":
-        got, lse = tfa.flash_attention_packed_fwd(q, k, v, scale, h, need_lse=need_lse)
+        run = lambda: tfa.flash_attention_packed_fwd(q, k, v, scale, h, need_lse=need_lse)  # noqa: E731
         want, lse_want = tfa._fwd_plain(q, k, v, scale, h, True)
         counter = "flash_attention_packed"
     else:
-        got, lse = tfa.flash_attention_bhsd_fwd(q, k, v, scale, block_k=256,
-                                                need_lse=need_lse)
+        run = lambda: tfa.flash_attention_bhsd_fwd(q, k, v, scale, block_k=256,  # noqa: E731
+                                                   need_lse=need_lse)
         want, lse_want = tfa._fwd_plain(q, k, v, scale, None, True)
         counter = "flash_attention_bhsd_blockwise"
+    got, lse = run()
     torch.cuda.synchronize()
     assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {counter: 1,
                                                             "flash_attention_fwd_fp32": 1}
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert (got - want).abs().max().item() <= RTOL * want.abs().max().item()
+    again, lse_again = run()
+    assert torch.equal(got, again)
     if need_lse:
         assert lse.shape == lse_want.shape and lse.dtype == torch.float32
         assert (lse - lse_want).abs().max().item() <= LSE_TF32_TOL
+        assert torch.equal(lse, lse_again)
     else:
         assert lse is None
 
@@ -960,15 +973,17 @@ def test_cuda_fp32_backward_above_128_is_a_tf32_wgmma_kernel():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,d,tile", [
-    (2, 4096, 8, 40, None), (2, 4096, 8, 40, (1, 64)), (2, 4096, 8, 40, (2, 32)),
-    (2, 4096, 8, 40, (2, 96)),
-    (1, 300, 4, 48, None),   # ragged S, fewer heads, an unpadded head dim
-    (3, 1000, 2, 40, (2, 96)),  # ragged S in the widest staged tile
+    (2, 4096, 8, 40, None), (2, 4096, 8, 40, (128, 128)),
+    (1, 300, 4, 48, None),    # ragged S, fewer heads, an unpadded head dim
+    (3, 1000, 2, 40, None),   # ragged S
+    (1, 128, 1, 40, None),    # one key tile a head: Q freed after the first tile
+    (1, 256, 16, 40, None),   # 16 heads walked by one block
 ])
 @pytest.mark.parametrize("operands", ["bf16", "fp32"])
 def test_cuda_multihead_matches_plain(b, s, h, d, tile, operands):
-    """Both operand modes against the fp32 plain version, within 2% of its
-    largest magnitude."""
+    """Both operand modes of the all-heads block against the fp32 plain
+    version, within 2% of its largest magnitude; two calls bitwise equal;
+    one launch counted (and, fp32, one of the TF32 mode's prep kernel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v = _inputs((b, s, h * d), seed=19)
@@ -978,9 +993,11 @@ def test_cuda_multihead_matches_plain(b, s, h, d, tile, operands):
     want = tfa.flash_attention_packed_plain(q.float(), k.float(), v.float(), scale, h)
     torch.cuda.synchronize()
     counter = "flash_attention_multihead" + ("_tf32" if operands == "fp32" else "")
-    assert tfa.LAUNCHES[counter] == 1 and sum(tfa.LAUNCHES.values()) == 1
+    launched = {counter: 1, **({"flash_attention_tf32_prep": 1} if operands == "fp32" else {})}
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == launched
     err = (got.float() - want).abs().max().item()
     assert err <= RTOL * want.abs().max().item()
+    assert torch.equal(got, tfa.flash_attention_multihead(q, k, v, scale, h, operands, tile))
 
 
 @pytest.mark.cuda
@@ -1006,9 +1023,8 @@ def test_cuda_sweep_wrappers_refuse_what_the_kernels_do_not_take():
         tfa.flash_attention_multihead(p, p, p, 0.1, 8, tile=(2, 128))
     with pytest.raises(ValueError, match="does not take"):  # d = 64
         tfa.flash_attention_multihead(p, p, p, 0.1, 5)
-    many = torch.zeros(1, 256, 16 * 40, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="threads"):  # 16 heads x 2 warps > 512 threads
-        tfa.flash_attention_multihead(many, many, many, 0.1, 16)
+    with pytest.raises(ValueError, match="does not take"):  # the block's scale is positive
+        tfa.flash_attention_multihead(p, p, p, -0.1, 8)
     assert set(tfa.LAUNCHES.values()) == {0}
 
 

@@ -102,12 +102,17 @@ def test_tile_maps_cover_the_prototypes_blocks():
     # and refuses a chosen one
     with pytest.raises(ValueError, match="does not take"):
         tfa.fwd_library(D, True, flash_sweep.card_tile(512, 2048))
+    # S4's blocks all map to the all-heads block's one tile (128 query rows,
+    # 128 keys a staged tile)
     assert {bb: attn_multihead_bench.card_tile(*bb)
             for bb in ((512, 2048), (256, 2048), (512, 1024), (512, 4096))} \
-        == {(512, 2048): (2, 64), (256, 2048): (1, 64), (512, 1024): (2, 32),
-            (512, 4096): (2, 96)}
+        == {(512, 2048): (128, 128), (256, 2048): (128, 128), (512, 1024): (128, 128),
+            (512, 4096): (128, 128)} == {bb: tfa.MULTIHEAD_TILE for bb in
+                                          ((512, 2048), (256, 2048), (512, 1024), (512, 4096))}
     with pytest.raises(KeyError):
         flash_sweep.card_tile(128, 1024)
+    with pytest.raises(KeyError):
+        attn_multihead_bench.card_tile(128, 2048)
 
 
 def test_wrappers_refuse_unknown_operands_and_run_plain_on_cpu():

@@ -202,7 +202,7 @@ def test_forward_routing(d, tf32, tile, lib):
 def test_forward_routing_refuses_a_tile_above_128(tf32, tile):
     """Above head dim 128 no kernel has a chosen tile, and none takes fp32
     products of bf16 operands (S1 / S3's TF32 mode; fp32 operands there go
-    to flash_attention_fp32.cu): the route raises instead of taking another
+    to the forward of flash_attention_bwd_tf32.cu): the route raises instead of taking another
     kernel or a plain version."""
     with pytest.raises(ValueError, match="does not take head dim 136"):
         tfa.fwd_library(136, tf32, tile)

@@ -183,7 +183,7 @@ def test_server_runs_edits_in_arrival_order():
 
 def test_serve_refuses_a_dtype_the_card_kernels_do_not_take(monkeypatch):
     """float32 on the card is served (the attention kernels route it: the
-    TF32 mode and flash_attention_fp32.cu); a dtype that neither the model
+    TF32 modes and flash_attention_bwd_tf32.cu); a dtype that neither the model
     nor the kernels take, float16, is refused."""
     from eta_inversion_tpu_torch import models, serve
 

@@ -3,9 +3,9 @@ TF32 mode's prep kernel (its plain version), and the fp32 kernels' plain
 versions against the JAX package.
 
 * `fwd_library` / `bwd_library` by head dim and dtype: fp32 forward up to
-  head dim 128 on the narrow kernel's TF32 mode, above it on
-  csrc/flash_attention_fp32.cu; the fp32 backward up to 128 on the narrow
-  backward's TF32 mode, above it on csrc/flash_attention_bwd_tf32.cu; bf16
+  head dim 128 on the narrow kernel's TF32 mode, above it on the forward of
+  csrc/flash_attention_bwd_tf32.cu; the fp32 backward up to 128 on the
+  narrow backward's TF32 mode, above it on csrc/flash_attention_bwd_tf32.cu; bf16
   as before; a tile with TF32 products, bf16 operands with TF32 products
   above head dim 128 and any other dtype refused.
 * The prep kernel's plain version (`tf32_prep_plain`) against index
@@ -68,8 +68,8 @@ def _few_threads():
     (128, False, None, FP32, tfa.NARROW_TF32),   # the TF32 mode's widest head dim
     (80, True, None, FP32, tfa.NARROW_TF32),     # tf32 says nothing new for fp32
     (40, True, None, BF16, tfa.NARROW_TF32),     # S1 / S3: bf16 operands, fp32 products
-    (136, False, None, FP32, tfa.FP32_LIB),
-    (512, False, None, FP32, tfa.FP32_LIB),      # K3 at the VAE mid-block in fp32
+    (136, False, None, FP32, tfa.FWD_TF32_WIDE),
+    (512, False, None, FP32, tfa.FWD_TF32_WIDE),  # K3 at the VAE mid-block in fp32
     (512, False, None, BF16, tfa.WIDE_LIB),
 ])
 def test_forward_route_by_dtype(d, tf32, tile, dtype, route):
@@ -267,8 +267,8 @@ def test_fp32_backward_takes_a_kernel_route_and_never_falls_back(packed, d):
 
 @pytest.mark.parametrize("d", [40, 512])
 def test_fp32_forward_launch_path_refuses_a_tensor_off_the_card(d):
-    """The forward's TF32 route (d = 40) and flash_attention_fp32.cu (d =
-    512) take CUDA tensors only: a CPU tensor handed to the launch path
+    """The forward's TF32 route (d = 40) and its route above head dim 128
+    (d = 512, flash_attention_bwd_tf32.cu) take CUDA tensors only: a CPU tensor handed to the launch path
     raises, and nothing is counted."""
     q = _t(_np(2, 64, d, seed=1))
     tfa.reset_launch_counts()
