@@ -46,7 +46,13 @@ Phases, in order; any failure exits non-zero before the last line:
                kernel's all-heads block with the prototype's TF32 operands
                (its bf16 mode and K1's route timed beside it), all at the
                prototypes' (B, H, S, D) = (32, 8, 4096, 40), held against the
-               plain version computed a chunk of heads at a time; the TF32
+               plain version computed a chunk of heads at a time; K5 on the
+               inputs past its one-pass bf16 mode: fp32 operands (its TF32 mode after
+               the backward's prep kernel writes V^T) at the UNet's shapes,
+               300 keys (128-key chunks with an online softmax) and head dim
+               168 (the wide forward kernel with the key mask); K1-K3 also
+               at the shapes a bucket-8 edit runs (plain versions computed a
+               chunk of rows at a time); the TF32
                rows must also be closer on average to the fp32 result than
                the bf16 mode.  K4a / K4b at nti's shapes (the
                wgmma kernels) and at d = 512 (flash_attention_bwd.cu: bf16
@@ -94,6 +100,20 @@ Phases, in order; any failure exits non-zero before the last line:
                512x512x3 image, and the launch counts of the forward kernels
                (K1-K3) must have grown during the edits.  A tiny-preset edit on
                the card is also held against the same edit on the CPU.
+   batched  -- pair-batched serving: an sd15 etainv+ptp server built with
+               --max_batch 8 (buckets 1/2/4/8) takes 8 concurrent requests in
+               one bucket-8 dispatch (editing/batched.edit_batch; the bucket's
+               shapes warmed first by a 2-step edit_batch outside the
+               server), then 3 requests padded to bucket 4, then two of the 8
+               pairs again as bucket-1 edits (editor.edit); the dispatch stats
+               must say so, every image must be a finite 512x512x3, the
+               forward kernels must have run.  Prints s/edit and peak device
+               memory of each bucket, the bucket-1 edits' relative L2 from
+               their batched results (not asserted: other candidate-noise
+               draws, a bf16 argmin) and from their reconstructions.  Then
+               one sd15 UNet call at 2B = 8 rows with the CFG shared prefix
+               against the tiled latent: relative L2 within PREFIX_RTOL,
+               device ms of both, exactly one K1 launch at B rows.
    fp32     -- fp32, the reference's default dtype, on the card (TF32 off for
                the matmuls and on for cuDNN's convolutions, PyTorch's
                defaults, printed; the attention kernels' products are TF32
@@ -124,7 +144,8 @@ Phases, in order; any failure exits non-zero before the last line:
 
 Each phase sets the launch counts to 0 before it drives its path and checks
 them after: the kernels of its path must have been launched, and K5, K6 and
-the microbenchmarks' kernels not at all on the served paths (6, fp32, 7),
+the microbenchmarks' kernels not at all on the served paths (6, batched,
+fp32, 7),
 nor the fp32 kernels on the bf16 ones.  The
 line before the last is {"kernels": [...]}; the last line is {"ok": true,
 "device": {...}}.  Imports nothing of JAX.
@@ -215,13 +236,17 @@ KERNELS = [
                  "_flash_packed_kernel :295)",
      "counter": "flash_attention_packed", "source": "flash_attention_narrow.cu",
      "skip_phases": ("fp32", "vae_grad_fp32"),
-     "shapes": [("packed", 4, 4096, 8, 40), ("packed", 2, 1024, 8, 80)]},
+     # then the bucket-8 shapes (batched phase): the backward's 64x64 layers
+     # at 4B = 32 rows, the shared prefix's first one at 2B, the forward at B
+     "shapes": [("packed", 4, 4096, 8, 40), ("packed", 2, 1024, 8, 80),
+                ("packed", 32, 4096, 8, 40), ("packed", 16, 4096, 8, 40),
+                ("packed", 8, 4096, 8, 40), ("packed", 8, 1024, 8, 80)]},
     {"name": "K2 flash_attention_bhsd (one pass)",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:97 (_flash_fwd_impl, "
                  "block_k == S -> _flash_onepass_kernel :41)",
      "counter": "flash_attention_bhsd_onepass", "source": "flash_attention_narrow.cu",
      "skip_phases": ("fp32", "vae_grad_fp32"),
-     "shapes": [("onepass", 32, 1024, 1, 80)]},
+     "shapes": [("onepass", 32, 1024, 1, 80), ("onepass", 256, 1024, 1, 80)]},  # bucket 8
     # fp32 K1 and K2 on the narrow kernel's TF32 mode, and its prep kernel
     # (prep shapes: K1's fp32 operands, S1's bf16 ones)
     {"name": "K1 / K2 TF32 mode (fp32 operands)",
@@ -243,7 +268,9 @@ KERNELS = [
                  "block_k < S -> _flash_kernel :62)",
      "counter": "flash_attention_bhsd_blockwise", "source": "flash_attention_wide.cu",
      "skip_phases": ("fp32", "vae_grad_fp32"),
-     "shapes": [("blockwise", 2, 4096, 1, 512), ("blockwise", 1, 4096, 1, 512)]},
+     # bucket 8: decode's 2B rows, encode's B
+     "shapes": [("blockwise", 2, 4096, 1, 512), ("blockwise", 1, 4096, 1, 512),
+                ("blockwise", 16, 4096, 1, 512), ("blockwise", 8, 4096, 1, 512)]},
     {"name": "K4a flash_attention_bwd_dq",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:218 (_flash_bwd_impl -> "
                  "_flash_dq_kernel :144)",
@@ -264,6 +291,26 @@ KERNELS = [
      "counter": "crossk_attention", "source": "crossk_attention.cu",
      "shapes": [("crossk", 32, 4096, 40, 77), ("crossk", 32, 1024, 80, 77),
                 ("crossk", 32, 256, 160, 77)]},
+    # K5 past its one-pass bf16 mode: fp32 operands (its TF32 mode, after
+    # the fp32 backward's prep kernel writes V^T) at the UNet's shapes, more
+    # than 256 keys (128-key chunks, online softmax), a head dim above 160
+    # (the wide forward kernel with the key mask)
+    {"name": "K5 fp32 (TF32 mode)",
+     "replaces": "eta_inversion_tpu/ops/flash_attention.py:506 (crossk_attention_bhsd -> "
+                 "_crossk_kernel :488), fp32 operands",
+     "counter": "crossk_attention_tf32", "source": "crossk_attention.cu",
+     "shapes": [("crossk_fp32", 32, 4096, 40, 77), ("crossk_fp32", 32, 1024, 80, 77),
+                ("crossk_fp32", 32, 256, 160, 77)]},
+    {"name": "K5 sk > 256 (128-key chunks)",
+     "replaces": "eta_inversion_tpu/ops/flash_attention.py:506 (crossk_attention_bhsd -> "
+                 "_crossk_kernel :488), K / V padded to 384 keys",
+     "counter": "crossk_attention_chunked", "source": "crossk_attention.cu",
+     "shapes": [("crossk", 32, 4096, 40, 300)]},
+    {"name": "K5 d > 160 (wide forward, key mask)",
+     "replaces": "eta_inversion_tpu/ops/flash_attention.py:506 (crossk_attention_bhsd -> "
+                 "_crossk_kernel :488), head dim 168",
+     "counter": "crossk_attention_wide", "source": "flash_attention_wide.cu",
+     "shapes": [("crossk", 32, 256, 168, 77)]},
     {"name": "S2 cross_shortk (K5's kernel)",
      "replaces": "scripts/attn_microbench3.py:107 (cross_shortk -> kern_crossk :93)",
      "counter": "crossk_attention", "source": "crossk_attention.cu",
@@ -533,6 +580,11 @@ def _sdpa(kind, q, k, v, h, d):
     return [x[:, None] for x in (q, k, v)]
 
 
+# the largest fp32 score tensor a plain forward builds at once: the bucket-8
+# shapes (up to 17 GB of scores at (32, 4096, 8, 40)) run in chunks of rows
+PLAIN_SCORE_BYTES = 2 << 30
+
+
 def _fwd_case(kind, q, k, v, b, s, h, d, scale):
     """(kernel fn, plain fn, check fn -> [(kernel output, plain output)]
     (and checks the LSE), library fn, extra) for a forward kernel; on the
@@ -540,19 +592,23 @@ def _fwd_case(kind, q, k, v, b, s, h, d, scale):
     (_beside_tf32)."""
     fp32 = kind.endswith("_fp32")
     kind = kind.removesuffix("_fp32")
+    rows = max(1, PLAIN_SCORE_BYTES // (h * s * s * 4))  # leading rows a plain chunk holds
     if kind == "packed":
         run = lambda: fa.flash_attention_packed(q, k, v, scale, heads=h)  # noqa: E731
-        plain = lambda: fa.flash_attention_packed_plain(q, k, v, scale, h)  # noqa: E731
+        plain = lambda: _chunked(  # noqa: E731
+            lambda *x: fa.flash_attention_packed_plain(*x, scale, h), q, k, v, rows)
         with_lse = lambda: fa.flash_attention_packed_fwd(q, k, v, scale, h, need_lse=True)  # noqa: E731
-        lse_want = fa.attention_lse_plain(fa._packed_to_flat(q, h), fa._packed_to_flat(k, h),
-                                          scale).reshape(b, h, s)
+        lse_want = _chunked(lambda a, b_, _: fa.attention_lse_plain(
+            fa._packed_to_flat(a, h), fa._packed_to_flat(b_, h), scale), q, k, v,
+            rows).reshape(b, h, s)
     else:
         bk = s if kind == "onepass" else s // 4
         run = lambda: fa.flash_attention_bhsd(q, k, v, scale, block_q=256, block_k=bk)  # noqa: E731
-        plain = lambda: fa.flash_attention_bhsd_plain(q, k, v, scale)  # noqa: E731
+        plain = lambda: _chunked(  # noqa: E731
+            lambda *x: fa.flash_attention_bhsd_plain(*x, scale), q, k, v, rows)
         with_lse = lambda: fa.flash_attention_bhsd_fwd(q, k, v, scale, block_k=bk,  # noqa: E731
                                                        need_lse=True)
-        lse_want = fa.attention_lse_plain(q, k, scale)
+        lse_want = _chunked(lambda a, b_, _: fa.attention_lse_plain(a, b_, scale), q, k, v, rows)
 
     def check():
         got = run()
@@ -829,15 +885,23 @@ def _crossk_case(kind, shape, seed):
     bh, sq, d, sk = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = 128 if kind == "crossk_padded" else sk
-    q = torch.randn(bh, sq, d, generator=g, device="cuda").bfloat16()
-    k, v = (torch.randn(bh, rows, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+    fp32 = kind.endswith("_fp32")
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    q = torch.randn(bh, sq, d, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(bh, rows, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     scale = d ** -0.5
     run = lambda: fa.crossk_attention_bhsd(q, k, v, sk, scale)  # noqa: E731
-    plain = lambda: fa.crossk_attention_plain(q, k, v, sk, scale)  # noqa: E731
-    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q[:, None], k[:, None, :sk], v[:, None, :sk], scale=scale)
-    nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * 2
-    bound = _roofline(4 * bh * sq * sk * d, bh * sq * sk, 0, nbytes)
+    plain = lambda: fa.crossk_attention_plain(q, k, v, sk, scale, tf32=fp32)  # noqa: E731
+    qh, kh, vh = q[:, None], k[:, None, :sk], v[:, None, :sk]
+    if fp32:  # SDPA at the kernel's precision: its math backend, TF32 matmuls
+        library = _at_tf32(lambda: _sdpa_math(qh, kh, vh, scale))
+    else:
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, scale=scale)
+    nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * q.element_size()
+    flops = 4 * bh * sq * sk * d
+    bound = _roofline(0 if fp32 else flops, bh * sq * sk, 0, nbytes,
+                      tf32_flops=flops if fp32 else 0)
     extra = {}
 
     def check():
@@ -993,7 +1057,8 @@ def _multihead_case(kind, shape, seed):
             extra)
 
 
-CASES = {"crossk": _crossk_case, "crossk_padded": _crossk_case, "geglu": _geglu_case,
+CASES = {"crossk": _crossk_case, "crossk_fp32": _crossk_case, "crossk_padded": _crossk_case,
+         "geglu": _geglu_case,
          "tiled": _sweep_case, "tiled_tf32": _sweep_case, "prod": _sweep_case,
          "multihead": _multihead_case, "prep_fp32": _prep_case, "prep_bf16": _prep_case,
          "bwd_prep": _bwd_prep_case}
@@ -1415,6 +1480,7 @@ def phase_serving(steps: int) -> dict:
             httpd.shutdown()
             httpd.server_close()
         server.shutdown()
+        serve.EditHandler.server_ctx = None  # the handler class held the model
     if "image" not in http_res:
         raise RuntimeError(f"HTTP edit failed: {http_res}")
     for i, res in enumerate(results):
@@ -1434,6 +1500,195 @@ def phase_serving(steps: int) -> dict:
         raise RuntimeError(f"main path never launched: {missing}")
     _check_opt_in_idle(counts, "serving")
     return {"seconds_per_edit": secs / 3, "launches": counts, "peak_bytes": peak}
+
+
+# the batched phase's bucket, and the shared prefix's bound: relative L2 of
+# one bf16 UNet call with the prefix against the same call on the tiled
+# latent.  A row computed in the same order gives the same bits, but cuDNN
+# and the GEMMs may take other algorithms at B rows than at 2B, which moves
+# the prefix's bf16 activations by about one rounding (2^-8 of them) that
+# the rest of the UNet carries; 1e-2 is a few roundings, while a latent row
+# paired with the wrong context row is O(1)
+BATCH = 8
+PREFIX_RTOL = 1e-2
+
+
+def _kernel_ms(fn, calls: int = 3) -> float:
+    """Summed device-kernel ms of one call of fn (torch.profiler over
+    `calls` calls after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / calls
+    if total <= 0:
+        raise RuntimeError("the profiler recorded no device kernel")
+    return total
+
+
+def _prefix_check(unet) -> dict:
+    """One sd15 UNet call at 2B = 8 rows with the CFG shared prefix (B = 4
+    latent rows) and without it (the latent tiled): their relative L2
+    difference, the summed device-kernel ms of each (torch.profiler, in
+    turns: prefix, tiled, tiled, prefix; a UNet call's ~2,300 launches leave
+    gaps that host-clock and event timings fold in) and how many K1 launches
+    took B rows."""
+    b, cfg = BATCH // 2, unet.config
+    g = torch.Generator(device="cuda").manual_seed(11)
+    lat = torch.randn(b, 4, cfg.sample_size, cfg.sample_size, generator=g, device="cuda")
+    ctx = torch.randn(2 * b, 77, cfg.cross_attention_dim, generator=g, device="cuda")
+    lat, ctx = lat.to(unet.conv_in.weight.dtype), ctx.to(unet.conv_in.weight.dtype)
+    rows = []
+    k1 = fa.flash_attention_packed
+
+    def spy(q, *args, **kwargs):
+        rows.append(q.shape[0])
+        return k1(q, *args, **kwargs)
+
+    def shared():
+        return unet(lat, 501, ctx, cfg_shared_prefix=True)
+
+    def full():
+        return unet(torch.cat([lat, lat]), 501, ctx)
+
+    fa.flash_attention_packed = spy  # attention_packed looks it up at each call
+    try:
+        with torch.no_grad():
+            got = shared()
+            shared_rows = list(rows)
+            want = full()
+            turns = [_kernel_ms(fn) for fn in (shared, full, full, shared)]
+            times = {"shared": [turns[0], turns[3]], "full": [turns[1], turns[2]]}
+    finally:
+        fa.flash_attention_packed = k1
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    b_rows = sum(r == b for r in shared_rows)
+    log(f"[batched] sd15 UNet call at 2B = {2 * b} rows, CFG shared prefix vs the tiled "
+        f"latent: rel L2 {rel:.3e} (bound {PREFIX_RTOL}); device kernels "
+        f"{times['shared'][0]:.3f} / {times['shared'][1]:.3f} ms a call vs "
+        f"{times['full'][0]:.3f} / {times['full'][1]:.3f} tiled (in turns); K1 launches by "
+        f"rows with the prefix: "
+        f"{sorted(shared_rows)} ({b_rows} at B = {b} rows)")
+    if got.shape != want.shape or not (np.isfinite(rel) and rel <= PREFIX_RTOL):
+        raise RuntimeError(f"the CFG shared prefix changes the UNet's output: {rel}")
+    if b_rows != 1:
+        raise RuntimeError(f"expected one K1 launch at B rows (the first 64x64 "
+                           f"self-attention), got {shared_rows}")
+    return {"prefix_rel_l2": rel, "prefix_ms": times, "k1_b_row_launches": b_rows}
+
+
+def phase_batched(steps: int) -> dict:
+    """Pair-batched serving: an sd15 etainv+ptp server with --max_batch 8
+    takes 8 concurrent requests in one bucket-8 dispatch (edit_batch), then
+    3 in a bucket-4 dispatch padded by one; two of the 8 pairs again as
+    bucket-1 edits (editor.edit), each against its batched result (printed,
+    not asserted: etainv's argmin over its candidate noises may flip in
+    bf16, and a batch draws its noises as one tensor); then the CFG shared
+    prefix on one UNet call."""
+    from eta_inversion_tpu_torch import load_editor, load_inverter, serve
+    from eta_inversion_tpu_torch.editing.batched import edit_batch
+    from eta_inversion_tpu_torch.serving import EditRequest
+
+    inv_kwargs = {"eta": [[0.6, 0.0], [1.0, 0.7]], "noise_sample_count": 10}
+    args = serve.parse_args([
+        "--model", "sd15", "--inverter", "etainv", "--editor", "ptp", "--steps", str(steps),
+        "--dtype", "bfloat16", "--max_batch", str(BATCH), "--device", "cuda",
+        "--inverter_kwargs", json.dumps(inv_kwargs)])
+    t0 = time.monotonic()
+    server, pre, post = serve.build_server(args)
+    model = server.editor.inverter.model
+    torch.cuda.synchronize()
+    log(f"[batched] sd15 etainv+ptp server (--max_batch {BATCH}, buckets {serve.BUCKETS}) "
+        f"built in {time.monotonic() - t0:.1f} s (random weights, seed 0, bf16), {steps} steps "
+        f"per edit" + ("" if steps == 50 else " (below the default 50 to fit the time limit)"))
+    cfg = {"is_replace_controller": True, "cross_replace_steps": 0.8, "self_replace_steps": 0.5}
+    inv_cfg = {"edit_word_idx": [1, 1]}
+    animals = [("cat", "tiger"), ("dog", "wolf"), ("horse", "zebra"), ("duck", "swan"),
+               ("cow", "bull"), ("mouse", "rat"), ("goat", "sheep"), ("fox", "bear")]
+    prompts = [(f"a {a} sitting on a bench", f"a {b} sitting on a bench") for a, b in animals]
+    rs = np.random.RandomState(3)
+    images = [pre((rs.rand(512, 512, 3) * 255).astype(np.uint8)) for _ in range(BATCH)]
+
+    def submit(idx):
+        futs = [server.submit(EditRequest(images[i], *prompts[i], cfg=cfg, inv_cfg=inv_cfg))
+                for i in idx]
+        return [f.result(timeout=1200) for f in futs]
+
+    def check(results, what):
+        for i, res in enumerate(results):
+            if res is None or not torch.isfinite(res["image"]).all():
+                raise RuntimeError(f"{what} {i}: no result or a non-finite image")
+            _check_image(post(res["image"]), f"{what} {i}", 512)
+
+    try:
+        # warm-up: the bucket-8 shapes' first calls (cuDNN / cuBLAS plans,
+        # the allocator) through edit_batch on 2 steps, outside the server
+        warm = load_inverter(model, "etainv", num_inference_steps=2, **inv_kwargs)
+        edit_batch(load_editor(warm, "ptp"), np.concatenate(images), [p[0] for p in prompts],
+                   [p[1] for p in prompts], cfgs=[cfg] * BATCH, inv_cfgs=[inv_cfg] * BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.monotonic()
+        batched = submit(range(BATCH))
+        torch.cuda.synchronize()
+        secs8 = time.monotonic() - t0
+        counts = _counts()
+        peak8 = torch.cuda.max_memory_allocated()
+        stats8 = server.stats_snapshot()
+        check(batched, "batched edit")
+        if stats8["dispatch_sizes"] != {BATCH: 1} or stats8["padded_slots"] != 0:
+            raise RuntimeError(f"{BATCH} concurrent requests were not one bucket-{BATCH} "
+                               f"dispatch: {stats8}")
+        t0 = time.monotonic()
+        check(submit(range(3)), "padded edit")
+        torch.cuda.synchronize()
+        secs4 = time.monotonic() - t0
+        stats = server.stats_snapshot()
+        if stats["dispatch_sizes"] != {BATCH: 1, 4: 1} or stats["padded_slots"] != 1:
+            raise RuntimeError(f"3 requests were not one bucket-4 dispatch padded by one: {stats}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        solo = [server.edit(images[i], *prompts[i], cfg=cfg, inv_cfg=inv_cfg, timeout=1200)
+                for i in (0, 1)]
+        torch.cuda.synchronize()
+        secs1 = (time.monotonic() - t0) / 2
+        peak1 = torch.cuda.max_memory_allocated()
+        check(solo, "solo edit")
+        stats = server.stats_snapshot()
+        if stats["dispatch_sizes"] != {BATCH: 1, 4: 1, 1: 2}:
+            raise RuntimeError(f"the solo edits were not bucket-1 dispatches: {stats}")
+    finally:
+        server.shutdown()
+    def rel_l2(key):
+        return [((s[key].float() - b[key].float()).norm() / b[key].float().norm()).item()
+                for s, b in zip(solo, batched)]
+
+    rel, rel_inv = rel_l2("image"), rel_l2("image_inv")
+    log(f"[batched] {BATCH} concurrent requests, one bucket-{BATCH} dispatch: {secs8:.2f} s, "
+        f"{secs8 / BATCH:.3f} s/edit, peak device memory {peak8 / 2**30:.2f} GiB; 3 requests "
+        f"padded to bucket 4: {secs4:.2f} s, {secs4 / 3:.3f} s/edit; bucket 1: {secs1:.3f} "
+        f"s/edit, peak {peak1 / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); stats "
+        f"{json.dumps(stats)}")
+    log(f"[batched] pairs 0 and 1 as bucket-1 edits against their batched results: rel L2 "
+        f"{rel[0]:.3e}, {rel[1]:.3e} (not asserted: other candidate-noise draws, a bf16 "
+        f"argmin); their reconstructions (image_inv, the source rows snapped to the "
+        f"forward trajectory, no draw): {rel_inv[0]:.3e}, {rel_inv[1]:.3e}")
+    log(f"[batched] kernel launches during the bucket-{BATCH} dispatch: {json.dumps(counts)}")
+    missing = [k for k in FWD_COUNTERS if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"batched path never launched: {missing}")
+    _check_opt_in_idle(counts, "batched")
+    prefix = _prefix_check(model.unet)
+    del model, server
+    torch.cuda.empty_cache()
+    return {"seconds_per_edit": secs8 / BATCH, "seconds_per_edit_bucket1": secs1,
+            "peak_bytes": peak8, "peak_bytes_bucket1": peak1, "launches": counts,
+            "solo_rel_l2": rel, "solo_inv_rel_l2": rel_inv, **prefix}
 
 
 def phase_fp32(steps: int) -> dict:
@@ -1774,7 +2029,8 @@ def _multipart(fields: dict, png: bytes):
     return b"".join(parts), f"multipart/form-data; boundary={boundary}"
 
 
-PHASES = ("device", "build", "kernels", "fused", "microbench", "serving", "fp32", "nti")
+PHASES = ("device", "build", "kernels", "fused", "microbench", "serving", "batched", "fp32",
+          "nti")
 
 
 def main(argv=None) -> int:
@@ -1801,6 +2057,8 @@ def main(argv=None) -> int:
     if "serving" in phases:
         phase_tiny_reference()
         by_phase["serving"] = phase_serving(args.steps)["launches"]
+    if "batched" in phases:
+        by_phase["batched"] = phase_batched(args.steps)["launches"]
     if "fp32" in phases:
         by_phase["fp32"] = phase_fp32(args.steps)["launches"]
     if "nti" in phases:

@@ -224,12 +224,22 @@ class PtpHooks(AttnHooks):
                 and (not self.do_edit or self.layout.n_prompts < 2
                      or meta.res * meta.res > self.attn_replace_thres))
 
+    def cfg_prefix_safe(self, first_self_meta: AttnLayerMeta) -> bool:
+        # ptp acts on self-attention only at res^2 <= attn_replace_thres
+        # (`qkv`), stores only cross maps and leaves hidden / out as they are:
+        # the prefix through the first self layer is hook-free whenever that
+        # layer lies above the threshold (SD: 64^2 > 32^2)
+        return not self.do_edit or first_self_meta.res ** 2 > self.attn_replace_thres
+
     def replace_cross(self, base, repl):
         """base / repl: (B, H, hw, 77) source / target probabilities."""
         if self.mode == "replace":
             new = torch.einsum("bhpw,bwn->bhpn", base, self.mapper_mat.to(base.dtype))
         elif self.mode == "refine":
-            idx = self.mapper_idx[:, None, None, :].expand(*base.shape[:3], -1)
+            # -1 (a target token with no source token, refine alpha 0) reads
+            # the last column, as take_along_axis's negative index does in JAX
+            idx = self.mapper_idx.remainder(base.shape[-1])
+            idx = idx[:, None, None, :].expand(*base.shape[:3], -1)
             gathered = torch.gather(base, -1, idx)
             a = self.refine_alphas[:, None, None, :].to(base.dtype)
             new = gathered * a + repl * (1 - a)

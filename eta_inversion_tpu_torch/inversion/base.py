@@ -83,6 +83,10 @@ class DiffusionInversion:
         uncond = self.model.encode_text(self.model.tokenizer([negative_prompt]))
         return torch.cat([uncond, cond], dim=0)
 
+    def embed_texts(self, prompts: List[str]) -> torch.Tensor:
+        """N prompts -> (N, 77, D) embeddings in one text-encoder call."""
+        return self.model.encode_text(self.model.tokenizer(list(prompts)))
+
     def cat_context(self, contexts: List[torch.Tensor]) -> torch.Tensor:
         """[[u1,c1],[u2,c2]] -> [u1,u2,c1,c2]."""
         n = len(contexts)
@@ -107,8 +111,9 @@ class DiffusionInversion:
         store: Dict[str, torch.Tensor] = {}
         st = store if collect_store else None
 
-        def unet(lat, ctx):
-            return self.model.unet(lat, t, ctx, hooks=hooks, store=st)
+        def unet(lat, ctx, shared_prefix=False):
+            return self.model.unet(lat, t, ctx, hooks=hooks, store=st,
+                                   cfg_shared_prefix=shared_prefix)
 
         scalar_gs = isinstance(guidance_scale, (int, float)) and not force_full_cfg
         n = context.shape[0] // 2
@@ -120,11 +125,33 @@ class DiffusionInversion:
             eps = unet(latent, context[n:])
         else:
             if latent.shape[0] * 2 == context.shape[0]:
-                latent = torch.cat([latent, latent], dim=0)
-            eps_all = unet(latent, context)
+                # both guidance halves carry the same latent: with a hook-free
+                # prefix the UNet runs it once (exact, see models/unet.py)
+                if self._cfg_prefix_ok(hooks):
+                    eps_all = unet(latent, context, shared_prefix=True)
+                else:
+                    eps_all = unet(torch.cat([latent, latent], dim=0), context)
+            else:
+                eps_all = unet(latent, context)
             eps_u, eps_c = eps_all[:n], eps_all[n:]
             eps = eps_u + guidance_scale * (eps_c - eps_u)
         return eps, store
+
+    def _cfg_prefix_ok(self, hooks) -> bool:
+        """Is the CFG shared prefix exact for these hooks?  With no hooks, or
+        hooks that provably leave the UNet's prefix through the first
+        self-attention layer alone (AttnHooks.cfg_prefix_safe) and carry no
+        batch-restructuring plan (`unet_in_rows`).  The port's presets have
+        no added conditioning, which JAX also checks (SDXL's pooled text
+        embedding tells the rows apart from the first resnet)."""
+        if hooks is None:
+            return True
+        if hooks.unet_in_rows is not None:
+            return False
+        metas = [m for pair in self.model.attn_metas.values() for m in pair if not m.is_cross]
+        if not metas:
+            return False
+        return hooks.cfg_prefix_safe(min(metas, key=lambda m: m.idx))
 
     def step_forward(self, eps, t, latent):
         return ddim_inverse_step(self.schedule, latent, eps, t, self.inv_steps)

@@ -95,11 +95,16 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context, hooks=None, store=None):
+    def forward(self, x, context, hooks=None, store=None, dup: bool = False):
+        """`dup`: the CFG shared prefix ends here: x carries B rows through
+        the self-attention and is tiled to 2B ([x; x]) before norm2, where
+        the context first tells the guidance halves apart."""
         dt = x.dtype
         if hooks is not None:
             x = hooks.hidden(self.self_meta, x)
         x = x + self.attn1(self.norm1(x).to(dt), None, hooks, store)
+        if dup:
+            x = x.repeat(2, 1, 1)
         x = x + self.attn2(self.norm2(x).to(dt), context, hooks, store)
         return x + self.ff(self.norm3(x).to(dt))
 
@@ -120,12 +125,16 @@ class Transformer2D(nn.Module):
         self.depth = len(metas) // 2
         self.proj_out = nn.Conv2d(inner, channels, 1)
 
-    def forward(self, x, context, hooks=None, store=None):
+    def forward(self, x, context, hooks=None, store=None, dup: bool = False):
+        """`dup`: the first block tiles the rows ×2 (the CFG shared prefix's
+        end, BasicTransformerBlock); the residual is tiled to match."""
         b, c, h, w = x.shape
         residual = x
         y = self.proj_in(self.norm(x).to(x.dtype))
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, -1)  # tokens in (h, w) order
         for d in range(self.depth):
-            y = getattr(self, f"blocks_{d}")(y, context, hooks, store)
-        y = y.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+            y = getattr(self, f"blocks_{d}")(y, context, hooks, store, dup=dup and d == 0)
+        y = y.reshape(-1, h, w, y.shape[-1]).permute(0, 3, 1, 2)
+        if residual.shape[0] != y.shape[0]:
+            residual = residual.repeat(y.shape[0] // residual.shape[0], 1, 1, 1)
         return self.proj_out(y) + residual

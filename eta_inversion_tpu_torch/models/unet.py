@@ -5,8 +5,9 @@ Counterpart of eta_inversion_tpu/models/unet.py: 4 down stages (320/640/1280/
 stages, 32 attention layers.  `build_attn_metas` is the JAX package's at
 SD-1.x geometry; the config keeps the SD-1.x fields only (fixed head count,
 transformer depth 1, conv projections, no added conditioning: the SD-2.x /
-SDXL fields come with those presets).  The CFG shared-prefix saving
-is not ported yet (ROADMAP).
+SDXL fields come with those presets).  `cfg_shared_prefix` runs the prefix
+up to the first cross-attention once for both classifier-free-guidance
+halves, as the JAX UNet does.
 """
 
 from __future__ import annotations
@@ -122,11 +123,18 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 hooks: Optional[AttnHooks] = None,
-                store: Optional[Dict[str, torch.Tensor]] = None):
+                store: Optional[Dict[str, torch.Tensor]] = None,
+                cfg_shared_prefix: bool = False):
         """sample: (B, 4, h, w) latent; timesteps: int or (B,); context:
         (B, 77, cross_attention_dim).  Returns eps (B, 4, h, w) in the
         parameters' dtype.  Layers whose hooks store probabilities write them
-        into `store`."""
+        into `store`.
+
+        cfg_shared_prefix: sample carries B rows but the context 2B ([u_1..u_B,
+        c_1..c_B]): the guidance halves share the latent, so the prefix up to
+        the first cross-attention runs on B rows and the hidden states are
+        tiled there (exact; the caller makes sure no hook acts on the prefix,
+        AttnHooks.cfg_prefix_safe).  Returns 2B rows."""
         cfg = self.config
         dt = self.conv_in.weight.dtype
         b = sample.shape[0]
@@ -137,6 +145,15 @@ class UNet2DCondition(nn.Module):
         temb = self.time_embedding(temb.to(dt))
         ctx = encoder_hidden_states.to(dt)
         m = self._modules
+        dup_pending = cfg_shared_prefix
+
+        def transformer(name: str, x):
+            nonlocal dup_pending, temb
+            x = m[name](x, ctx, hooks, store, dup=dup_pending)
+            dup_pending = False
+            if temb.shape[0] != x.shape[0]:
+                temb = temb.repeat(x.shape[0] // temb.shape[0], 1)
+            return x
 
         x = self.conv_in(sample.to(dt))
         skips = [x]
@@ -144,25 +161,30 @@ class UNet2DCondition(nn.Module):
             for j in range(cfg.layers_per_block):
                 x = m[f"down_{i}_resnet_{j}"](x, temb)
                 if cfg.attn_down[i]:
-                    x = m[f"down_{i}_attn_{j}"](x, ctx, hooks, store)
+                    x = transformer(f"down_{i}_attn_{j}", x)
                 skips.append(x)
             if i < cfg.num_stages - 1:
                 x = m[f"down_{i}_downsample"](x)
                 skips.append(x)
         x = self.mid_resnet_0(x, temb)
-        x = self.mid_attn(x, ctx, hooks, store)
+        x = transformer("mid_attn", x)
         x = self.mid_resnet_1(x, temb)
         for up_i, stage in enumerate(reversed(range(cfg.num_stages))):
             for j in range(cfg.layers_per_block + 1):
-                x = torch.cat([x, skips.pop()], dim=1)
+                skip = skips.pop()
+                if skip.shape[0] != x.shape[0]:  # saved before the shared prefix's tiling
+                    skip = skip.repeat(x.shape[0] // skip.shape[0], 1, 1, 1)
+                x = torch.cat([x, skip], dim=1)
                 inner = None
                 if hooks is not None:
                     rmeta = ResnetMeta(up_i, j, x.shape[2])
                     inner = lambda h, rm=rmeta: hooks.resnet(rm, h)  # noqa: E731
                 x = m[f"up_{up_i}_resnet_{j}"](x, temb, inner_hook=inner)
                 if cfg.attn_down[stage]:
-                    x = m[f"up_{up_i}_attn_{j}"](x, ctx, hooks, store)
+                    x = transformer(f"up_{up_i}_attn_{j}", x)
             if stage > 0:
                 x = m[f"up_{up_i}_upsample"](x)
+        if dup_pending:  # no attention layer: tile at the end
+            x = x.repeat(2, 1, 1, 1)
         x = F.silu(self.conv_norm_out(x)).to(dt)
         return self.conv_out(x)

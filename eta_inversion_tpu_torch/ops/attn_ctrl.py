@@ -55,9 +55,25 @@ class ResnetMeta:
 
 
 class AttnHooks:
-    """No-op base hooks; subclass and override."""
+    """No-op base hooks; subclass and override.
+
+    `unet_in_rows` / `unet_out_rows` (row-index tuples or None) are the JAX
+    protocol's whole-UNet batch restructuring (pnp's plans, ROADMAP M8); no
+    ported hook sets them, and the engine reads `unet_in_rows` only to keep
+    such a plan off the CFG shared prefix (`DiffusionInversion._cfg_prefix_ok`)."""
+
+    unet_in_rows = None
+    unet_out_rows = None
 
     def wants_probs(self, meta: AttnLayerMeta) -> bool:
+        return False
+
+    def cfg_prefix_safe(self, first_self_meta: AttnLayerMeta) -> bool:
+        """Does this object provably not act on the UNet's prefix up to and
+        including the first self-attention layer?  The guidance halves' rows
+        are identical there, so the engine then runs the prefix once and
+        tiles at the first cross-attention (exact).  Conservative default:
+        False."""
         return False
 
     def store(self, meta: AttnLayerMeta) -> bool:

@@ -75,6 +75,7 @@ plain path with the JAX package's ±80 clamped softmax.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -110,6 +111,13 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_bwd_dkv_tf32_wide": 0,
     "flash_attention_bwd_tf32_prep": 0,
     "crossk_attention": 0,
+    # of the K5 calls, those on its TF32 mode (fp32), those in 128-key chunks
+    # (bf16 above 256 keys), and those above its widest head dim, on the
+    # forward kernels (flash_attention_wide.cu, or flash_attention_bwd_tf32.cu's
+    # forward for fp32)
+    "crossk_attention_tf32": 0,
+    "crossk_attention_chunked": 0,
+    "crossk_attention_wide": 0,
     "flash_attention_bhsd_tiled": 0,
     "flash_attention_bhsd_tf32": 0,
     "flash_attention_multihead": 0,
@@ -189,6 +197,9 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
         fn.restype = _i32
         fn = crossk.eti_crossk_attention
         fn.argtypes = [_ptr] * 4 + [_i32] * 4 + [_i64] * 8 + [ctypes.c_float, _ptr]
+        fn.restype = _i32
+        fn = crossk.eti_crossk_attention_tf32
+        fn.argtypes = [_ptr] * 4 + [_i32] * 5 + [_i64] * 6 + [ctypes.c_float, _ptr]
         fn.restype = _i32
         fn = narrow.eti_flash_attention_narrow_heads_fwd
         fn.argtypes = [_ptr] * 4 + [_i32] * 7 + [_i64] * 8 + [ctypes.c_float, _ptr]
@@ -1223,61 +1234,149 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, heads: Optional[int] 
 # short-K cross-attention (K5)
 # ---------------------------------------------------------------------------
 
-# K5's limits (csrc/crossk_attention.cu): bf16, head dim a multiple of 8 up to
-# 160 (SD-1.5's 16x16 and mid levels), at most 256 keys (a warpgroup keeps
-# its 64 rows' whole score rows in registers)
+# K5's limits (csrc/crossk_attention.cu): bf16 or fp32 (TF32 products), head
+# dim a multiple of 8 up to 160 (SD-1.5's 16x16 and mid levels), any sk >= 1:
+# up to 256 bf16 keys in one score block (a warpgroup keeps its 64 rows'
+# whole score rows in registers), above it and in fp32 in chunks of 128 keys
+# with an online softmax
 CROSSK_MAX_HEAD_DIM = 160
 CROSSK_MAX_KEYS = 256
+CROSSK_CHUNK_KEYS = 128
+# K5's routes on the card: its bf16 mode, its TF32 mode (fp32 operands), and
+# above CROSSK_MAX_HEAD_DIM the forward route `fwd_library` names (WIDE_LIB or
+# FWD_TF32_WIDE, up to KERNEL_MAX_HEAD_DIM)
+CROSSK_LIB = "eti_crossk_attention"
+CROSSK_TF32 = "eti_crossk_attention (tf32)"
 
 
-def crossk_attention_plain(q, k, v, sk: int, scale: float):
+def crossk_attention_plain(q, k, v, sk: int, scale: float, tf32: bool = False):
     """K5's function over flat (BH, Sq, D) q and (BH, >= sk, D) k / v: fp32
     scores over the first `sk` keys, exact softmax (row max subtracted),
     probabilities rounded to v's dtype for an fp32 PV product, as the Pallas
-    kernel rounds them."""
+    kernel rounds them.  With `tf32` (fp32 operands: the yardstick of K5's
+    TF32 mode) also its roundings: P and V to TF32 (`round_tf32_plain`; Q and
+    K, which the tensor cores truncate, as they are)."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k[:, :sk].float()) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bqk,bkd->bqd", p.float(), v[:, :sk].float()).to(q.dtype)
+    vf = v[:, :sk].float()
+    if tf32:
+        p, vf = round_tf32_plain(p), round_tf32_plain(vf)
+    return torch.einsum("bqk,bkd->bqd", p.float(), vf).to(q.dtype)
+
+
+def crossk_route(dtype: torch.dtype, d: int, sk: int) -> str:
+    """The route a K5 call of head dim `d` (padded to a multiple of 8 first)
+    over `sk` keys with operands of `dtype` takes on the card: K5's bf16
+    mode (CROSSK_LIB) or TF32 mode (CROSSK_TF32) up to CROSSK_MAX_HEAD_DIM,
+    above it the forward route of `fwd_library` with sk keys (masked past
+    them, as K5 masks them) up to KERNEL_MAX_HEAD_DIM.  ValueError for what
+    no kernel takes: another dtype, sk < 1, a head dim above
+    KERNEL_MAX_HEAD_DIM (ROADMAP Queue 3)."""
+    _check_dtype(dtype)
+    if sk < 1:
+        raise ValueError(f"sk={sk}: the short-K kernel takes at least one key")
+    dp = -(-d // 8) * 8
+    if not 0 < dp <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the short-K routes take head dims up to "
+                         f"{KERNEL_MAX_HEAD_DIM}")
+    if dp > CROSSK_MAX_HEAD_DIM:
+        return fwd_library(dp, dtype=dtype)
+    return CROSSK_TF32 if dtype == torch.float32 else CROSSK_LIB
+
+
+def _tma_ready(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x (BH, S, d0) as a TMA operand of head dim d >= d0: x itself when its
+    last dim is contiguous and its base and strides 16-byte aligned, else a
+    contiguous copy, zero-padded to d columns."""
+    d0 = x.shape[-1]
+    if d0 == d and x.stride(-1) == 1 and x.data_ptr() % 16 == 0 \
+            and all(st * x.element_size() % 16 == 0 for st in x.stride()[:-1]):
+        return x
+    out = x.new_zeros(x.shape[:-1] + (d,))
+    out[..., :d0] = x
+    return out
+
+
+def crossk_kernel_operands(q, k, v, sk: int, scale: float):
+    """The checks and operands of a K5 call, read from shapes, types and
+    addresses only (no card needed): (route, q, k, v) with k and v cut to
+    their first sk rows and each operand, where TMA would refuse it (a head
+    dim that is not a multiple of 8, a last dim that is not contiguous, a
+    base or stride off the 16-byte grain), an aligned contiguous copy, zero-
+    padded to a head dim that is a multiple of 8 (zero columns change
+    neither q k^T nor the kept columns of p v).  ValueError for what no
+    route takes (`crossk_route`), mismatched shapes, types or devices, sk
+    above k's rows, a scale that is not finite."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dim() != 3:
+            raise ValueError(f"{name}: expected 3 dims, got shape {tuple(x.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v of different dtypes: {q.dtype}, {k.dtype}, {v.dtype}")
+    bh, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v on different devices")
+    route = crossk_route(q.dtype, d, sk)
+    if sk > k.shape[1]:
+        raise ValueError(f"sk={sk}: more keys than the {k.shape[1]} rows of k")
+    if not math.isfinite(scale):
+        raise ValueError(f"short-K attention: the kernel does not take scale {scale}")
+    _check_grid(bh, 1, sq, sk)
+    dp = -(-d // 8) * 8
+    return route, _tma_ready(q, dp), _tma_ready(k[:, :sk], dp), _tma_ready(v[:, :sk], dp)
 
 
 def crossk_attention_bhsd(q, k, v, sk: int, scale: float, block_q: int = 1024):
     """Cross-attention over flat (BH, Sq, D) q with a short key range: the
     first `sk` rows of (BH, >= sk, D) k and v (SD: 77 text tokens; K5's
-    prototype S2 passes K/V already padded to 128 rows).  The kernel reads
-    K/V through TMA maps of sk rows (the rows past them arrive as zeros) and
-    masks keys >= sk; block_q is ignored (kept for the JAX signature).  On
-    the card it takes bf16, a head dim that is a multiple of 8 up to 160 and
-    sk up to 256, with the last dim contiguous and, as TMA needs, 16-byte
-    aligned bases and row and batch-head strides, and raises otherwise; a
-    CPU tensor takes the plain version.  No gradient: the JAX kernel has none
-    either."""
+    prototype S2 passes K/V already padded to 128 rows).  block_q is ignored
+    (kept for the JAX signature).  On the card, the route `crossk_route`
+    names for the operands `crossk_kernel_operands` makes: K5
+    (csrc/crossk_attention.cu, which reads K/V through TMA maps of sk rows,
+    the rows past them arriving as zeros, and masks keys >= sk) for head
+    dims up to 160, bf16, or fp32 on its TF32 mode after the fp32 backward's
+    prep kernel writes V^T (`flash_attention_bwd_tf32_prep`); above 160 the
+    port's forward kernels (flash_attention_wide.cu, bf16, or
+    flash_attention_bwd_tf32.cu's forward, fp32) on the sk keys.  Every
+    call on the card counts on LAUNCHES["crossk_attention"], and by route
+    on "crossk_attention_tf32", "_chunked" (bf16 above 256 keys) or "_wide"
+    (above head dim 160); it raises for what no route takes.  A
+    CPU tensor takes the plain version.  No gradient: the JAX kernel has
+    none either."""
     if q.device.type == "cpu":
         return crossk_attention_plain(q, k, v, sk, scale)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, 3)
+    if not q.is_cuda:
+        raise ValueError(f"q: expected a CUDA tensor, got {q.device}")
+    route, qk, kk, vk = crossk_kernel_operands(q, k, v, sk, scale)  # k, v on q's device
     bh, sq, d = q.shape
-    _check_head_dim(d, CROSSK_MAX_HEAD_DIM)
-    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
-        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
-    if not 0 < sk <= min(k.shape[1], CROSSK_MAX_KEYS):
-        raise ValueError(f"sk={sk}: kernel takes 1 to {CROSSK_MAX_KEYS} keys, "
-                         f"at most the {k.shape[1]} rows of k")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v on different devices")
-    _check_grid(bh, 1, sq, sk)
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lib = build_kernels()["eti_crossk_attention"]
-    err = lib.eti_crossk_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, sq, sk, d,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        o.stride(0), o.stride(1), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        _launched(err, "short-K attention kernel",
-                  f"head dim {d}, sk {sk}, scale {scale} with strides "
-                  f"{[x.stride() for x in (q, k, v)]}")
+    if route not in (CROSSK_LIB, CROSSK_TF32):
+        o = _fwd_launch(qk, kk, vk, scale, None, False)[0]
+        LAUNCHES["crossk_attention_wide"] += 1
+    else:
+        o = torch.empty_like(qk, memory_format=torch.contiguous_format)
+        lib = build_kernels()[CROSSK_LIB]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        dp = qk.shape[-1]
+        if route == CROSSK_TF32:
+            vt = flash_attention_bwd_tf32_prep(vk, vk, vk, kt=True, qdot=False)[0]
+            LAUNCHES["crossk_attention_tf32"] += 1
+            err = lib.eti_crossk_attention_tf32(
+                qk.data_ptr(), kk.data_ptr(), vt.data_ptr(), o.data_ptr(), bh, sq, sk, dp,
+                vt.shape[-1], qk.stride(0), qk.stride(1), kk.stride(0), kk.stride(1),
+                o.stride(0), o.stride(1), float(scale), stream)
+        else:
+            LAUNCHES["crossk_attention_chunked"] += sk > CROSSK_MAX_KEYS
+            err = lib.eti_crossk_attention(
+                qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), o.data_ptr(), bh, sq, sk, dp,
+                qk.stride(0), qk.stride(1), kk.stride(0), kk.stride(1), vk.stride(0),
+                vk.stride(1), o.stride(0), o.stride(1), float(scale), stream)
+        if err:
+            _launched(err, f"short-K attention kernel ({route})",
+                      f"head dim {d}, sk {sk}, scale {scale} with strides "
+                      f"{[x.stride() for x in (q, k, v)]}")
     LAUNCHES["crossk_attention"] += 1
-    return o
+    return o if o.shape[-1] == d else o[..., :d]
 
 
 # the JAX dispatch takes its one-pass kernel (block_k == S) up to this length

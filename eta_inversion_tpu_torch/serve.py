@@ -3,7 +3,7 @@
 Counterpart of the repository's serve.py for the PyTorch port:
 
     python -m eta_inversion_tpu_torch.serve --model sd15 --inverter etainv \
-        --editor ptp --steps 50 --port 8000 \
+        --editor ptp --steps 50 --max_batch 8 --max_wait_ms 50 --port 8000 \
         --inverter_kwargs '{"eta": [[0.6, 0.0], [1.0, 0.7]], "noise_sample_count": 10}'
     python -m eta_inversion_tpu_torch.serve --model sd15 --inverter nti \
         --editor ptp --inverter_kwargs '{"num_inner_steps": 10}'
@@ -12,11 +12,14 @@ API:
   POST /v1/edit   multipart form: image (png/jpg file), source_prompt,
                   target_prompt, optional cfg / inv_cfg (JSON strings)
                   -> {"image": <base64 png>, "latency_s": ...}
-  GET  /v1/stats  -> request / edit counts and queue depth
+  GET  /v1/stats  -> requests, batches, padded slots, dispatches by bucket,
+                  mean batch and queue depth
   GET  /healthz   -> 200 once the model is loaded
 
-Only bucket 1 is ported, so --max_batch defaults to 1 (larger values are
-refused) and --max_wait_ms, kept for the CLI's sake, has nothing to coalesce.
+Concurrent requests are coalesced (serving.BatchingEditServer): for up to
+--max_wait_ms after the oldest one arrived, or until --max_batch (at most 8)
+are queued, then padded to a bucket of 1, 2, 4 or 8 pairs; bucket 1 runs
+editor.edit, the others one pair-batched edit (editing/batched.edit_batch).
 --dtype is bfloat16 (the default) or float32: on the card fp32 attention
 runs on the TF32 tensor cores: up to head dim 128 on the TF32 modes of the
 narrow forward and backward, above it on csrc/flash_attention_bwd_tf32.cu
@@ -35,6 +38,9 @@ from email.policy import HTTP
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from .serving import BatchingEditServer
+
+# the batch sizes the server pads a group to
+BUCKETS = (1, 2, 4, 8)
 
 
 def parse_multipart(headers, body: bytes):
@@ -66,7 +72,7 @@ def build_server(args):
                              **json.loads(args.inverter_kwargs))
     editor = load_editor(inverter, args.editor)
     server = BatchingEditServer(editor, max_batch=args.max_batch,
-                                buckets=tuple(sorted({1, args.max_batch})),
+                                max_wait_ms=args.max_wait_ms, buckets=BUCKETS,
                                 sync_dispatch=args.sync_dispatch)
     return server, pre, post
 
@@ -143,11 +149,14 @@ def parse_args(argv=None):
     ap.add_argument("--editor", default="ptp")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--dtype", default="bfloat16")
-    ap.add_argument("--max_batch", type=int, default=1)
+    ap.add_argument("--max_batch", type=int, default=8,
+                    help=f"most requests a dispatch takes, up to {BUCKETS[-1]} (groups are "
+                         f"padded to a bucket of {BUCKETS})")
     ap.add_argument("--max_wait_ms", type=float, default=50.0,
-                    help="accepted for the CLI's sake; no effect at bucket 1")
+                    help="longest time the oldest queued request waits for others to "
+                         "batch with")
     ap.add_argument("--sync_dispatch", action="store_true",
-                    help="wait for the card to finish each edit before the next")
+                    help="wait for the card to finish each dispatch before the next")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")

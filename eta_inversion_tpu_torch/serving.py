@@ -1,20 +1,31 @@
-"""Edit server: one dispatch thread runs queued edits in arrival order.
+"""Dynamic-batching edit server: the serving tier.
 
-Counterpart of eta_inversion_tpu/serving.py at bucket 1: callers block on
-futures while the dispatch thread (the only thread that touches the device)
-runs ``editor.edit`` for one request at a time.  The JAX server's coalescing
-into pair-batched ``edit_batch`` calls (buckets above 1) is not ported yet,
-so a server given a bucket or ``max_batch`` above 1 raises ``ValueError``.
+Counterpart of eta_inversion_tpu/serving.py.  Callers block on futures while
+one dispatch thread (the only thread that touches the device) turns the
+arrival process into pair-batched edits:
+
+- Requests are coalesced for at most ``max_wait_ms`` after the oldest one
+  arrived, or until ``max_batch`` are queued, whichever comes first.
+- A group is padded up to a bucket size (default 1/2/4/8) by repeating its
+  last request, so the card sees a handful of batch shapes.
+- Requests whose scalar ptp options disagree cannot share one controller
+  (editing/batched.py::_merged_ptp_cfg), so the batcher groups them by a
+  compatibility key and runs the oldest request's group first.
+- Bucket 1 runs ``editor.edit``; larger buckets ``edit_batch``, whose B rows
+  run the same kernel routes as B = 1 at a larger batch.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from .editing.batched import SCALAR_PTP_KEYS, edit_batch
 
 
 @dataclass(eq=False)
@@ -29,35 +40,46 @@ class EditRequest:
     cfg: Optional[Dict[str, Any]] = None
     inv_cfg: Optional[Dict[str, Any]] = None
     future: Future = field(default_factory=Future)
+    enqueued_at: float = field(default_factory=time.monotonic)
+
+    def compat_key(self) -> Tuple:
+        """Requests with equal keys may share a batch."""
+        cfg = self.cfg or {}
+        return tuple((k, cfg.get(k)) for k in SCALAR_PTP_KEYS)
 
 
 class BatchingEditServer:
-    """Queue edit requests and run them, oldest first, on one dispatch thread.
+    """Coalesce concurrent edit requests into bucketed batched edits.
 
-        server = BatchingEditServer(editor)
+        server = BatchingEditServer(editor, max_batch=8, max_wait_ms=50)
         fut = server.submit(EditRequest(image, "a cat", "a tiger"))
-        result = fut.result()      # {"image", "latent", ...}
+        result = fut.result()      # {"image", "latent", ...} sliced to B = 1
         server.shutdown()
     """
 
-    def __init__(self, editor, max_batch: int = 1, buckets: Sequence[int] = (1,),
-                 sync_dispatch: bool = False):
+    def __init__(self, editor, max_batch: int = 8, max_wait_ms: float = 50.0,
+                 buckets: Sequence[int] = (1, 2, 4, 8), sync_dispatch: bool = False):
         self.editor = editor
-        # sync_dispatch: wait for the device to finish an edit before taking
-        # the next one (by default the next edit's kernels may queue behind)
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_ms) / 1000.0
+        # sync_dispatch: wait for the device to finish a group before taking
+        # the next one (by default the next group's kernels may queue behind)
         self.sync_dispatch = bool(sync_dispatch)
-        buckets = sorted(set(int(b) for b in buckets))
-        if not buckets or buckets[0] < 1:
-            raise ValueError(f"buckets must be positive, got {buckets}")
-        if buckets[-1] > 1 or int(max_batch) > 1:
-            raise ValueError("only bucket 1 is ported (pair-batched edit_batch is not): "
-                             f"got buckets={buckets}, max_batch={max_batch}")
+        self.buckets = sorted(set(int(b) for b in buckets))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"buckets must be positive, got {self.buckets}")
+        if not 1 <= self.max_batch <= self.buckets[-1]:
+            raise ValueError(f"max_batch={self.max_batch} must be servable by the largest "
+                             f"bucket, {self.buckets[-1]}")
         self._queue: List[EditRequest] = []
         self._lock = threading.Lock()
         self._wakeup = threading.Condition(self._lock)
         self._closed = False
-        self.stats: Dict[str, Any] = {"requests": 0, "edits": 0}
-        self._thread = threading.Thread(target=self._dispatch_loop, name="edit-dispatch",
+        # dispatch_sizes counts dispatches by bucket (a long-running server's
+        # stats do not grow)
+        self.stats: Dict[str, Any] = {"requests": 0, "batches": 0, "padded_slots": 0,
+                                      "dispatch_sizes": {}}
+        self._thread = threading.Thread(target=self._dispatch_loop, name="edit-batcher",
                                         daemon=True)
         self._thread.start()
 
@@ -89,40 +111,82 @@ class BatchingEditServer:
 
     # ---- dispatch side ---------------------------------------------------
 
-    def _take(self) -> Optional[EditRequest]:
-        """Block until work exists; the oldest request, or None once closed
-        and drained."""
+    def _take_group(self) -> Optional[List[EditRequest]]:
+        """Block until work exists, coalesce up to max_wait / max_batch, then
+        return the oldest request's compatibility group (FIFO fairness); None
+        once closed and drained."""
         with self._wakeup:
             while not self._queue and not self._closed:
                 self._wakeup.wait()
-            return self._queue.pop(0) if self._queue else None
+            if not self._queue:
+                return None
+            deadline = self._queue[0].enqueued_at + self.max_wait_s
+            while len(self._queue) < self.max_batch and not self._closed:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._wakeup.wait(timeout=remaining)
+            key = self._queue[0].compat_key()
+            group = [r for r in self._queue if r.compat_key() == key][: self.max_batch]
+            taken = {id(r) for r in group}
+            self._queue = [r for r in self._queue if id(r) not in taken]
+            return group
+
+    def _bucket(self, n: int) -> int:
+        return next((b for b in self.buckets if b >= n), self.buckets[-1])
 
     def _dispatch_loop(self) -> None:
         # an exception escaping this loop would kill the one dispatch thread
-        # and strand every queued future, so each edit is guarded
+        # and strand every queued future, so the whole body is guarded
         while True:
-            req = self._take()
-            if req is None:
-                return
+            group: Optional[List[EditRequest]] = None
             try:
-                self._run(req)
+                group = self._take_group()
+                if group is None:
+                    return
+                self._run_group(group)
             except Exception as exc:
-                if not req.future.done():
-                    req.future.set_exception(exc)
+                for r in group or ():
+                    if not r.future.done():
+                        r.future.set_exception(exc)
+                if group is None:  # _take_group failed: fail what is queued
+                    with self._lock:
+                        stranded, self._queue = self._queue, []
+                    for r in stranded:
+                        if not r.future.done():
+                            r.future.set_exception(exc)
 
-    def _run(self, req: EditRequest) -> None:
+    def _run_group(self, group: List[EditRequest]) -> None:
+        n = len(group)
+        bucket = self._bucket(n)
+        reqs = group + [group[-1]] * (bucket - n)  # pad with repeats
         with self._lock:
-            self.stats["edits"] += 1
-        image = torch.as_tensor(req.image).float()
-        res = self.editor.edit(image if image.dim() == 4 else image[None],
-                               req.source_prompt, req.target_prompt, cfg=req.cfg,
-                               inv_cfg=req.inv_cfg)
+            self.stats["batches"] += 1
+            self.stats["padded_slots"] += bucket - n
+            sizes = self.stats["dispatch_sizes"]
+            sizes[bucket] = sizes.get(bucket, 0) + 1
+        images = [torch.as_tensor(r.image).float() for r in reqs]
+        images = torch.cat([x if x.dim() == 4 else x[None] for x in images])
+        if bucket == 1:
+            r = reqs[0]
+            res = self.editor.edit(images, r.source_prompt, r.target_prompt, cfg=r.cfg,
+                                   inv_cfg=r.inv_cfg)
+        else:
+            res = edit_batch(self.editor, images, [r.source_prompt for r in reqs],
+                             [r.target_prompt for r in reqs], cfgs=[r.cfg for r in reqs],
+                             inv_cfgs=[r.inv_cfg for r in reqs])
         if res is not None and self.sync_dispatch and res["image"].is_cuda:
             torch.cuda.synchronize(res["image"].device)
-        req.future.set_result(res)
+        for i, r in enumerate(group):
+            # None: an unsupported combination, Editor.edit's contract
+            r.future.set_result(None if res is None else {k: v[i: i + 1] for k, v in res.items()})
 
     # ---- introspection ---------------------------------------------------
 
     def stats_snapshot(self) -> Dict[str, Any]:
         with self._lock:
-            return dict(self.stats, queue_depth=len(self._queue))
+            s = dict(self.stats, dispatch_sizes=dict(self.stats["dispatch_sizes"]),
+                     queue_depth=len(self._queue))
+            if s["batches"]:
+                s["mean_batch"] = s["requests"] / s["batches"]
+            return s

@@ -1163,31 +1163,89 @@ def test_cuda_tiled_bf16_is_the_narrow_kernel(d, s):
                                                            tfa.NARROW_TILE))
 
 
+def _crossk_close(got, q, k, v, sk, scale):
+    """got within RTOL of K5's plain version (with the TF32 mode's roundings
+    for fp32 operands)."""
+    want = tfa.crossk_attention_plain(q, k, v, sk, scale, tf32=q.dtype == torch.float32)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == q.dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,sq,d,sk,rows", [
+    (2, 256, 40, 77, 77), (2, 256, 168, 77, 77), (2, 256, 40, 300, 300),  # the CPU tests'
+    (32, 4096, 40, 77, 77), (32, 1024, 80, 77, 77), (32, 256, 160, 77, 77),  # sd15
+    (3, 1000, 8, 257, 260), (3, 65, 160, 1000, 1000), (3, 300, 80, 513, 600),  # 128-key chunks
+    (4, 200, 48, 128, 128), (4, 200, 48, 129, 129),  # fp32: one chunk, then two
+    (2, 300, 36, 77, 77),  # a head dim that is no multiple of 8: padded to 40
+    (2, 200, 512, 300, 300), (2, 100, 200, 5, 9),  # above 160: the forward kernels
+])
+def test_cuda_crossk_takes_what_jax_takes(dtype, bh, sq, d, sk, rows):
+    """Every input JAX's crossk_attention_bhsd computes reaches a kernel:
+    fp32 on K5's TF32 mode (after the backward's prep kernel writes V^T),
+    more than 256 keys in 128-key chunks with an online softmax, a ragged
+    head dim zero-padded, head dims above 160 on the forward kernels; each
+    within 2% of the plain version, counted, and bitwise repeatable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(bh + sq + d + sk)
+    q = torch.randn(bh, sq, d, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(bh, rows, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    scale = d ** -0.5
+    tfa.reset_launch_counts()
+    got = tfa.crossk_attention_bhsd(q, k, v, sk, scale)
+    _crossk_close(got, q, k, v, sk, scale)
+    wide = d > tfa.CROSSK_MAX_HEAD_DIM
+    fp32 = dtype == torch.float32
+    counts = {n: c for n, c in tfa.LAUNCHES.items() if c}
+    assert counts.pop("crossk_attention") == 1
+    assert counts.pop("crossk_attention_wide", 0) == int(wide)
+    assert counts.pop("crossk_attention_tf32", 0) == int(fp32 and not wide)
+    assert counts.pop("crossk_attention_chunked", 0) == int(
+        not fp32 and not wide and sk > tfa.CROSSK_MAX_KEYS)
+    if fp32:  # V^T by the prep kernel (the wide route counts its own)
+        assert counts == ({"flash_attention_fwd_fp32": 1} if wide
+                          else {"flash_attention_bwd_tf32_prep": 1})
+    else:
+        assert counts == {}
+    assert torch.equal(got, tfa.crossk_attention_bhsd(q, k, v, sk, scale))
+
+
 @pytest.mark.cuda
 def test_cuda_crossk_refuses_what_the_kernel_does_not_take():
+    """K5 refuses only what no route takes: sk above k's rows, no key, a
+    scale that is not finite, a head dim above 512.  fp32, a head dim above
+    160, more than 256 keys, a row stride off TMA's 16-byte grain and a last
+    dim that is not contiguous compute (the last two on an aligned copy),
+    within 2% of the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v = _inputs((2, 256, 40))
     tfa.reset_launch_counts()
-    with pytest.raises(ValueError, match="bfloat16"):
-        tfa.crossk_attention_bhsd(q.float(), k.float(), v.float(), 77, 0.1)
-    a = torch.zeros(2, 64, 168, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 160"):
-        tfa.crossk_attention_bhsd(a, a, a, 64, 0.1)
-    kk = torch.zeros(2, 300, 40, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="256 keys"):
-        tfa.crossk_attention_bhsd(q, kk, kk, 257, 0.1)
+    _crossk_close(tfa.crossk_attention_bhsd(q.float(), k.float(), v.float(), 77, 0.1),
+                  q.float(), k.float(), v.float(), 77, 0.1)
+    a = torch.randn(2, 64, 168, device="cuda", dtype=torch.bfloat16)
+    _crossk_close(tfa.crossk_attention_bhsd(a, a, a, 64, 0.1), a, a, a, 64, 0.1)
+    kk = torch.randn(2, 300, 40, device="cuda", dtype=torch.bfloat16)
+    _crossk_close(tfa.crossk_attention_bhsd(q, kk, kk, 257, 0.1), q, kk, kk, 257, 0.1)
+    odd = torch.randn(2, 256, 44, device="cuda", dtype=torch.bfloat16)[..., :40]
+    _crossk_close(tfa.crossk_attention_bhsd(odd, k, v, 77, 0.1), odd, k, v, 77, 0.1)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)  # q's values, the last dim strided
+    _crossk_close(tfa.crossk_attention_bhsd(qt, k, v, 77, 0.1), q, k, v, 77, 0.1)
+    assert tfa.LAUNCHES["crossk_attention"] == 5
+    tfa.reset_launch_counts()
     with pytest.raises(ValueError, match="rows of k"):
         tfa.crossk_attention_bhsd(q, k[:, :77], v[:, :77], 78, 0.1)
-    with pytest.raises(ValueError, match="256 keys"):
+    with pytest.raises(ValueError, match="at least one key"):
         tfa.crossk_attention_bhsd(q, k, v, 0, 0.1)
-    odd = torch.zeros(2, 256, 44, device="cuda", dtype=torch.bfloat16)[..., :40]
-    with pytest.raises(ValueError, match="16-byte aligned"):  # TMA's grain: a row stride of 44
-        tfa.crossk_attention_bhsd(odd, k, v, 77, 0.1)
-    with pytest.raises(ValueError, match="contiguous"):
-        tfa.crossk_attention_bhsd(q.transpose(1, 2), k, v, 77, 0.1)
-    with pytest.raises(ValueError, match="does not take"):  # the entry point's own refusal
+    with pytest.raises(ValueError, match="does not take"):  # the scale a kernel cannot use
         tfa.crossk_attention_bhsd(q, k, v, 77, float("inf"))
+    wide = torch.zeros(2, 64, 520, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 512"):
+        tfa.crossk_attention_bhsd(wide, wide, wide, 64, 0.1)
     assert tfa.LAUNCHES["crossk_attention"] == 0
 
 

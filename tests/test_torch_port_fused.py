@@ -254,3 +254,75 @@ def test_crossk_reads_the_first_sk_rows_of_padded_kv():
     got = tfa.crossk_attention_bhsd(q, k, v, 77, 40 ** -0.5)
     want = tfa.crossk_attention_bhsd(q, k[:, :77], v[:, :77], 77, 40 ** -0.5)
     assert torch.equal(got, want)
+
+
+# TF32's 10-bit mantissa: P and V rounded to nearest lose up to 2^-11 of each
+# value, so a weighted average of V rows moves by at most about 2^-10 of the
+# largest |v|; 2e-3 of the largest output leaves room for that, and a wrong
+# key order or a dropped chunk is O(1)
+CROSSK_TF32_RTOL = 2e-3
+
+
+@pytest.mark.parametrize("bh,sq,d,sk", [(2, 256, 40, 77), (2, 256, 168, 77), (2, 256, 40, 300)])
+def test_crossk_fp32_plain_matches_pallas_interpret(bh, sq, d, sk):
+    """The inputs the card kernel used to refuse, fp32 and a head dim above
+    160 and more than 256 keys: the plain version (what a CPU tensor
+    computes) against the Pallas kernel in interpret mode within CROSSK_TOL,
+    and the TF32 mode's yardstick (P and V rounded to TF32) within
+    CROSSK_TF32_RTOL of it."""
+    rs = np.random.RandomState(bh + sq + d + sk)
+    q = rs.randn(bh, sq, d).astype(np.float32)
+    k, v = (rs.randn(bh, sk, d).astype(np.float32) for _ in range(2))
+    scale = d ** -0.5
+    want = np.asarray(jfa.crossk_attention_bhsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                sk=sk, scale=scale, block_q=sq, interpret=True))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = tfa.crossk_attention_bhsd(tq, tk, tv, sk, scale)
+    np.testing.assert_allclose(got.numpy(), want, rtol=CROSSK_TOL, atol=CROSSK_TOL)
+    tf32 = tfa.crossk_attention_plain(tq, tk, tv, sk, scale, tf32=True).numpy()
+    assert np.abs(tf32 - want).max() <= CROSSK_TF32_RTOL * np.abs(want).max()
+    assert not np.array_equal(tf32, want)  # the roundings are there
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 36, 40, 80, 160, 168, 200, 512])
+@pytest.mark.parametrize("sk", [1, 77, 256, 257, 1000])
+def test_crossk_operands_reach_a_kernel_route(dtype, d, sk):
+    """Every (dtype, head dim, sk) the JAX entry takes reaches a kernel route
+    on the card, read from shapes alone: K5's bf16 or TF32 mode up to head
+    dim 160, the forward kernels above it; the operands as TMA takes them
+    (head dim a multiple of 8, last dim contiguous, 16-byte aligned rows),
+    K / V cut to sk rows, and the padding changes nothing the plain version
+    computes."""
+    rs = np.random.RandomState(d + sk)
+    q = torch.from_numpy(rs.randn(2, 70, d).astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rs.randn(2, sk + 3, d).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    route, qk, kk, vk = tfa.crossk_kernel_operands(q, k, v, sk, 0.3)
+    if d > tfa.CROSSK_MAX_HEAD_DIM:
+        assert route == tfa.fwd_library(d, dtype=dtype)
+    else:
+        assert route == (tfa.CROSSK_TF32 if dtype == torch.float32 else tfa.CROSSK_LIB)
+    dp = -(-d // 8) * 8
+    for x, rows in ((qk, 70), (kk, sk), (vk, sk)):
+        assert x.shape == (2, rows, dp) and x.dtype == dtype and x.stride(-1) == 1
+        assert all(s * x.element_size() % 16 == 0 for s in x.stride()[:-1])
+    got = tfa.crossk_attention_plain(qk, kk, vk, sk, 0.3)[..., :d]
+    assert torch.equal(got, tfa.crossk_attention_plain(q, k, v, sk, 0.3))
+
+
+def test_crossk_operands_refuse_what_no_route_takes():
+    """No route takes a head dim above 512 (ROADMAP Queue 3), no key, sk
+    above k's rows, a scale that is not finite, another dtype."""
+    q = torch.zeros(2, 64, 520)
+    with pytest.raises(ValueError, match="up to 512"):
+        tfa.crossk_kernel_operands(q, q, q, 64, 0.1)
+    q = torch.zeros(2, 64, 40)
+    with pytest.raises(ValueError, match="at least one key"):
+        tfa.crossk_kernel_operands(q, q, q, 0, 0.1)
+    with pytest.raises(ValueError, match="rows of k"):
+        tfa.crossk_kernel_operands(q, q, q, 65, 0.1)
+    with pytest.raises(ValueError, match="does not take"):
+        tfa.crossk_kernel_operands(q, q, q, 64, float("nan"))
+    with pytest.raises(ValueError, match="float16"):
+        tfa.crossk_kernel_operands(q.half(), q.half(), q.half(), 64, 0.1)

@@ -138,8 +138,8 @@ def test_server_refuses_unported_buckets_and_registry_keys(pair):
     from eta_inversion_tpu_torch.serving import BatchingEditServer
 
     _, port = pair
-    with pytest.raises(ValueError, match="bucket"):
-        BatchingEditServer(object(), max_batch=8, buckets=(1, 2, 4, 8))
+    with pytest.raises(ValueError, match="largest bucket"):  # buckets above 1 are served
+        BatchingEditServer(object(), max_batch=16, buckets=(1, 2, 4, 8))
     with pytest.raises(ValueError, match="not ported"):
         load_inverter(port, "edict")
     with pytest.raises(ValueError, match="not ported"):
@@ -151,8 +151,9 @@ def test_server_refuses_unported_buckets_and_registry_keys(pair):
 
 
 def test_server_runs_edits_in_arrival_order():
-    """The bucket-1 server is a FIFO over editor.edit: one edit per request,
-    oldest first, and an editor's exception reaches only its own caller."""
+    """At max_batch 1 the server is a FIFO over editor.edit: one edit per
+    request, oldest first, and an editor's exception reaches only its own
+    caller."""
     from eta_inversion_tpu_torch.serving import BatchingEditServer, EditRequest
 
     class Recorder:
@@ -166,7 +167,7 @@ def test_server_runs_edits_in_arrival_order():
             return {"image": image}
 
     editor = Recorder()
-    server = BatchingEditServer(editor)
+    server = BatchingEditServer(editor, max_batch=1)
     img = np.zeros((4, 4, 3), np.float32)
     try:
         futs = [server.submit(EditRequest(img, src, "t")) for src in ("a", "bad", "b", "c")]
@@ -178,7 +179,9 @@ def test_server_runs_edits_in_arrival_order():
     finally:
         server.shutdown()
     assert editor.seen == ["a", "b", "c"]
-    assert server.stats_snapshot() == {"requests": 4, "edits": 4, "queue_depth": 0}
+    assert server.stats_snapshot() == {"requests": 4, "batches": 4, "padded_slots": 0,
+                                       "dispatch_sizes": {1: 4}, "queue_depth": 0,
+                                       "mean_batch": 1.0}
 
 
 def test_serve_refuses_a_dtype_the_card_kernels_do_not_take(monkeypatch):
