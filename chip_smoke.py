@@ -55,7 +55,9 @@ Phases, in order; any failure exits non-zero before the last line:
                forward's kernels, which stream d, bf16 operands widened to
                fp32 around them); K1-K3 also
                at the shapes a bucket-8 edit runs (plain versions computed a
-               chunk of rows at a time); the TF32
+               chunk of rows at a time), and at the families phase's: d = 64
+               with 5, 10 and 20 heads at S = 1024-9216 (K1, K2), the VAE at
+               S = 9216 and 16384 (K3), sdxl nti's K4a / K4b; the TF32
                rows must also be closer on average to the fp32 result than
                the bf16 mode.  K4a / K4b at nti's shapes (the
                wgmma kernels) and at d = 512 (flash_attention_bwd.cu: bf16
@@ -137,7 +139,8 @@ Phases, in order; any failure exits non-zero before the last line:
                a pair.
 7. nti      -- the sd15 nti+ptp edit server answers one 512x512 edit (null-
                text inversion: Adam on the null embedding through UNet
-               gradients, 10 inner steps per step); the result must be finite
+               gradients, 10 inner steps per step, --nti_steps 25 steps by
+               default, half the inverter's 50, to fit the time limit); the result must be finite
                512x512x3 and every flash kernel's launch count, the backward's
                (K4a, K4b) included, must have grown.  Then one nti inner
                gradient at full width (UNet forward + backward with respect to
@@ -171,6 +174,26 @@ Phases, in order; any failure exits non-zero before the last line:
                farther than P2P_WITNESS_RATIO times the plain path
                (scripts/torch_editors_precision.py prints the readings
                behind both, and EDICT's precision).
+   families -- the other model families at full published width and
+               depth (bf16, random weights from seed 0, one model at a
+               time, freed before the next): an etainv+ptp edit through
+               load_inverter / load_editor / editor.edit on sd21 (512 px,
+               50 steps), sd21v (768 px, v-prediction, 20 steps) and sdxl
+               (1024 px, depth 1/2/10, two text towers, text_time
+               conditioning, 20 steps); each must give finite images of its
+               size and exactly the launches its layer counts predict
+               (K1 for the self layers above 32x32 and the forward loop's,
+               K2 for ptp's 32x32 q/k substitution, K3 the VAE's encode
+               and decode at S = 4096 / 9216 / 16384, d = 512); prints
+               s/edit, peak device memory and the build; each model's text
+               towers in bf16 against the same weights in fp32
+               (TEXT_BF16_RTOL).  On sdxl a short nti + ptp edit (FAMILY_NTI)
+               whose null embeddings keep the packed context row 77 exactly,
+               and the inner gradient check of the nti phase at 1024 px
+               (kernels vs plain within GRAD_RTOL).  Then tiny21, tinyv and
+               tinyxl card vs CPU (etainv+ptp, diffinv+simple, nti+ptp), and
+               one `python -m eta_inversion_tpu_torch.edit_image --model
+               sdxl` process (FAMILY_CLI_STEPS steps, a 1024x1024 PNG).
 8. checkpoint -- the sd15 random init (fp32, seed 0) written as a
                diffusers-layout checkpoint directory (about 4.3 GB of
                safetensors, under build/, removed after the cli phase) with
@@ -193,7 +216,7 @@ Phases, in order; any failure exits non-zero before the last line:
 Each phase sets the launch counts to 0 before it drives its path and checks
 them after: the kernels of its path must have been launched, and K5, K6 and
 the microbenchmarks' kernels not at all on the served paths (6, batched,
-fp32, 7, editors, 9),
+fp32, 7, editors, families, 9),
 nor the fp32 kernels on the bf16 ones.  The
 line before the last is {"kernels": [...]}; the last line is {"ok": true,
 "device": {...}}.  Imports nothing of JAX.
@@ -305,15 +328,23 @@ KERNELS = [
                 ("packed", 32, 4096, 8, 40), ("packed", 16, 4096, 8, 40),
                 ("packed", 8, 4096, 8, 40), ("packed", 8, 1024, 8, 80),
                 # pnp's 3-row UNet call (editors phase)
-                ("packed", 3, 4096, 8, 40)]},
+                ("packed", 3, 4096, 8, 40),
+                # the families phase at d = 64: sd21's 64x64 backward (4 rows, 5
+                # heads) and 32x32 forward (1 row, 10), sd21v's 96x96 and 48x48
+                # backward, sdxl's 64x64 backward (10 heads) and 32x32 forward (20)
+                ("packed", 4, 4096, 5, 64), ("packed", 1, 1024, 10, 64),
+                ("packed", 4, 9216, 5, 64), ("packed", 4, 2304, 10, 64),
+                ("packed", 4, 4096, 10, 64), ("packed", 1, 1024, 20, 64)]},
     {"name": "K2 flash_attention_bhsd (one pass)",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:97 (_flash_fwd_impl, "
                  "block_k == S -> _flash_onepass_kernel :41)",
      "counter": "flash_attention_bhsd_onepass", "source": "flash_attention_narrow.cu",
      "skip_phases": ("fp32", "vae_grad_fp32"),
-     # then bucket 8, then pnp's 3-row call (editors phase)
+     # then bucket 8, then pnp's 3-row call (editors phase), then ptp's q/k
+     # substitution at 32x32 on sd21 (4 rows x 10 heads) and sdxl (x 20)
      "shapes": [("onepass", 32, 1024, 1, 80), ("onepass", 256, 1024, 1, 80),
-                ("onepass", 24, 1024, 1, 80)]},
+                ("onepass", 24, 1024, 1, 80), ("onepass", 40, 1024, 1, 64),
+                ("onepass", 80, 1024, 1, 64)]},
     # fp32 K1 and K2 on the narrow kernel's TF32 mode, and its prep kernel
     # (prep shapes: K1's fp32 operands, S1's bf16 ones)
     {"name": "K1 / K2 TF32 mode (fp32 operands)",
@@ -336,9 +367,12 @@ KERNELS = [
      "counter": "flash_attention_bhsd_blockwise", "source": "flash_attention_wide.cu",
      "exclude": "flash_attention_bhsd_blockwise_narrow",
      "skip_phases": ("fp32", "vae_grad_fp32"),
-     # bucket 8: decode's 2B rows, encode's B
+     # bucket 8: decode's 2B rows, encode's B; the VAE at 768 px (sd21v,
+     # S = 9216) and 1024 px (sdxl, S = 16384), decode and encode
      "shapes": [("blockwise", 2, 4096, 1, 512), ("blockwise", 1, 4096, 1, 512),
-                ("blockwise", 16, 4096, 1, 512), ("blockwise", 8, 4096, 1, 512)]},
+                ("blockwise", 16, 4096, 1, 512), ("blockwise", 8, 4096, 1, 512),
+                ("blockwise", 2, 9216, 1, 512), ("blockwise", 1, 9216, 1, 512),
+                ("blockwise", 2, 16384, 1, 512), ("blockwise", 1, 16384, 1, 512)]},
     # K3 up to head dim 128 runs on the narrow kernel: the hooked 64x64
     # self-attention of masactrl (4 rows x 8 heads) and pnp (3 rows) at d = 40
     {"name": "K3 flash_attention_bhsd (blockwise), d <= 128",
@@ -352,16 +386,19 @@ KERNELS = [
                  "_flash_dq_kernel :144)",
      "counter": "flash_attention_bwd_dq", "exclude": "flash_attention_bwd_dq_wide",
      "source": "flash_attention_bwd_narrow.cu", "skip_phases": ("fp32", "vae_grad_fp32"),
-     # nti's one row, then pix2pix_zero's guidance gradient on [latent; latent]
+     # nti's one row, then pix2pix_zero's guidance gradient on [latent; latent],
+     # then nti on sdxl (10 heads at 64x64, 20 at 32x32, d = 64)
      "shapes": [("bwd_dq", 1, 4096, 8, 40), ("bwd_dq", 1, 1024, 8, 80),
-                ("bwd_dq", 2, 4096, 8, 40), ("bwd_dq", 2, 1024, 8, 80)]},
+                ("bwd_dq", 2, 4096, 8, 40), ("bwd_dq", 2, 1024, 8, 80),
+                ("bwd_dq", 1, 4096, 10, 64), ("bwd_dq", 1, 1024, 20, 64)]},
     {"name": "K4b flash_attention_bwd_dkv",
      "replaces": "eta_inversion_tpu/ops/flash_attention.py:235 (_flash_bwd_impl -> "
                  "_flash_dkv_kernel :170)",
      "counter": "flash_attention_bwd_dkv", "exclude": "flash_attention_bwd_dkv_wide",
      "source": "flash_attention_bwd_narrow.cu", "skip_phases": ("fp32", "vae_grad_fp32"),
      "shapes": [("bwd_dkv", 1, 4096, 8, 40), ("bwd_dkv", 1, 1024, 8, 80),
-                ("bwd_dkv", 2, 4096, 8, 40), ("bwd_dkv", 2, 1024, 8, 80)]},
+                ("bwd_dkv", 2, 4096, 8, 40), ("bwd_dkv", 2, 1024, 8, 80),
+                ("bwd_dkv", 1, 4096, 10, 64), ("bwd_dkv", 1, 1024, 20, 64)]},
     # K5 / S2 shapes: (kind, BH, Sq, D, sk); K5 at the 64x64, 32x32 and 16x16
     # cross-attentions of a 4-row sd15 UNet call
     {"name": "K5 crossk_attention_bhsd",
@@ -1491,8 +1528,8 @@ TINY_PATHS = [("etainv", TINY_ETA, "ptp", {}, TINY_PTP, {"edit_word_idx": (1, 1)
               ("regdiffinv", {}, "ptp", {}, TINY_PTP, None)]
 
 
-def phase_tiny_reference() -> float:
-    """The tiny preset's edits (TINY_PATHS, 10 steps) on the card against the
+def phase_tiny_reference(preset: str = "tiny", paths=TINY_PATHS, tag: str = "serving") -> float:
+    """A tiny preset's edits (`paths`, 10 steps) on the card against the
     same edits on the CPU (fp32, TF32 off on both the matmul and the conv
     path): each edited image within TINY_TOL."""
     from eta_inversion_tpu_torch import load_editor, load_inverter
@@ -1502,13 +1539,13 @@ def phase_tiny_reference() -> float:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     img = np.random.RandomState(0).rand(1, 16, 16, 3).astype(np.float32) * 2 - 1
-    models = {"cuda": load_diffusion_model("tiny", device="cuda", seed=0)[0]}
-    models["cpu"] = load_diffusion_model("tiny", device="cpu", seed=0)[0]
+    models = {"cuda": load_diffusion_model(preset, device="cuda", seed=0)[0]}
+    models["cpu"] = load_diffusion_model(preset, device="cpu", seed=0)[0]
     # same weights on both: the card's
     models["cpu"].nets.load_state_dict({k: v.cpu()
                                         for k, v in models["cuda"].nets.state_dict().items()})
     worst = 0.0
-    for inverter, inv_kwargs, editor, ed_kwargs, cfg, inv_cfg in TINY_PATHS:
+    for inverter, inv_kwargs, editor, ed_kwargs, cfg, inv_cfg in paths:
         outs = {}
         for dev, model in models.items():
             def noise_fn(i, shape, dev=dev):  # same candidate noises on both devices
@@ -1524,10 +1561,10 @@ def phase_tiny_reference() -> float:
         err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
         label = f"{inverter}+{editor}" + ("" if not cfg or "mode" not in cfg
                                           else f" {cfg['mode']}")
-        log(f"[serving] tiny {label} edit, card vs CPU: max_abs_err={err:.3e} "
+        log(f"[{tag}] {preset} {label} edit, card vs CPU: max_abs_err={err:.3e} "
             f"(bound {TINY_TOL})")
         if not err <= TINY_TOL:
-            raise RuntimeError(f"tiny {label} edit on the card disagrees with the CPU: {err}")
+            raise RuntimeError(f"{preset} {label} edit on the card disagrees with the CPU: {err}")
         worst = max(worst, err)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     return worst
@@ -2041,16 +2078,22 @@ def phase_nti(steps: int, inner: int) -> dict:
             "inner_iterations": iters, **grad}
 
 
-def phase_grad_check(inverter) -> dict:
-    """One nti inner gradient at sd15 width (UNet forward + backward with
-    respect to the null embedding, the nti loss) three ways: through the
-    kernels; on the plain attention path (the dispatch gate closed, as the
-    CPU takes it); and with the self-attention share dropped (the wrappers
-    told no gradient is needed: the forward kernel alone, as before K4)."""
-    unet, t = inverter.model.unet, 501
+def phase_grad_check(inverter, tag: str = "nti") -> dict:
+    """One nti inner gradient at the model's full width (UNet forward +
+    backward with respect to the null embedding, the nti loss; the UNet's
+    output through to_eps) three ways: through the kernels; on the plain
+    attention path (the dispatch gate closed, as the CPU takes it); and with
+    the self-attention share dropped (the wrappers told no gradient is
+    needed: the forward kernel alone, as before K4)."""
+    model, t = inverter.model, 501
+    s = model.latent_size
     g = torch.Generator(device="cuda").manual_seed(5)
-    lat = torch.randn(1, 4, 64, 64, generator=g, device="cuda")
-    target = torch.randn(1, 4, 64, 64, generator=g, device="cuda")
+    lat = torch.randn(1, 4, s, s, generator=g, device="cuda")
+    target = torch.randn(1, 4, s, s, generator=g, device="cuda")
+
+    def unet(x, t, ctx):
+        return inverter.to_eps(model.unet(x, t, ctx), x, t)
+
     with torch.no_grad():
         uncond, cond = inverter.create_context("a cat sitting next to a mirror").chunk(2)
         eps_cond = unet(lat, t, cond)
@@ -2066,7 +2109,7 @@ def phase_grad_check(inverter) -> dict:
     fa.reset_launch_counts()
     g_kernel = grad()
     launched = dict(fa.LAUNCHES)
-    share = _profile_gradient(grad)
+    share = _profile_gradient(grad, tag)
     gate, needs_grad = fa._kernel_eligible, fa._needs_grad
     try:
         fa._kernel_eligible = lambda *a, **k: False
@@ -2079,7 +2122,7 @@ def phase_grad_check(inverter) -> dict:
     ref = g_plain.norm().item()
     err = (g_kernel - g_plain).norm().item() / ref
     err_dropped = (g_dropped - g_plain).norm().item() / ref
-    log(f"[nti] full-width gradient wrt the null embedding: kernels vs plain attention "
+    log(f"[{tag}] full-width gradient wrt the null embedding: kernels vs plain attention "
         f"rel L2 {err:.3e} (bound {GRAD_RTOL}); self-attention share dropped vs plain "
         f"{err_dropped:.3e} (must exceed the bound); |g| {ref:.3e}; launches "
         f"K4a {launched['flash_attention_bwd_dq']} K4b {launched['flash_attention_bwd_dkv']}")
@@ -2093,7 +2136,7 @@ def phase_grad_check(inverter) -> dict:
     return {"grad_rel_err": err, "grad_rel_err_dropped": err_dropped, **share}
 
 
-def _profile_gradient(grad) -> dict:
+def _profile_gradient(grad, tag: str = "nti") -> dict:
     """Device time of one inner gradient by kernel (torch.profiler) against
     its synchronized wall time: the K4a / K4b share of device time and the
     device's busy share."""
@@ -2121,7 +2164,7 @@ def _profile_gradient(grad) -> dict:
         m = re.search(r"flash_bwd_\w+<\d+", e.key)
         if m and e.self_device_time_total > 0:
             launches[m.group(0) + ">"] = launches.get(m.group(0) + ">", 0) + e.count
-    log(f"[nti] one inner gradient: wall {wall_ms:.2f} ms (synchronized, unprofiled); "
+    log(f"[{tag}] one inner gradient: wall {wall_ms:.2f} ms (synchronized, unprofiled); "
         f"device kernels {total:.2f} ms (busy {total / wall_ms:.1%} of the wall); "
         f"K4a {k4['flash_bwd_dq']:.3f} ms + K4b {k4['flash_bwd_dkv']:.3f} ms = "
         f"{(k4['flash_bwd_dq'] + k4['flash_bwd_dkv']) / total:.1%} of device "
@@ -2493,6 +2536,37 @@ CLI_RUNS = [("edit_image", "etainv", "ptp", "{}"),
 CLI_COUNTERS = ("flash_attention_packed", "flash_attention_bhsd_blockwise")
 
 
+def _cli_process(cmd, out: Path, label: str, size: int, need) -> tuple:
+    """Run one entry-point process (`cmd`, writing `out`): it must exit 0,
+    print its "Took" and "kernel launches" lines, write a size x size x 3
+    PNG that is not flat, and have launched the kernels of `need` and none
+    of K5, K6, the microbenchmarks' or the fp32 kernels.  (s/edit from its
+    "Took" line, the process's wall seconds, its launches by counter.)"""
+    from PIL import Image
+
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)})
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli {label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    took = re.search(r"^Took ([0-9.]+)s$", proc.stdout, re.M)
+    launches = re.search(r"^kernel launches (\{.*\})$", proc.stdout, re.M)
+    if not (took and launches):
+        raise RuntimeError(f"cli {label}: no Took / kernel launches line in\n{proc.stdout}")
+    counts = {k: 0 for k in _counts()}
+    counts.update(json.loads(launches.group(1)))
+    arr = np.asarray(Image.open(out))
+    _check_image(arr, f"cli {label}", size)
+    if arr.std() == 0:
+        raise RuntimeError(f"cli {label}: a flat image")
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"cli {label}: never launched {missing}")
+    _check_opt_in_idle(counts, f"cli {label}")
+    return float(took.group(1)), wall, counts
+
+
 def phase_cli(ckpt: str, steps: int) -> dict:
     """The port's entry points as a user runs them, one process each:
     python -m eta_inversion_tpu_torch.edit_image / .invert_image on the
@@ -2522,35 +2596,225 @@ def phase_cli(ckpt: str, steps: int) -> dict:
                "--weights_dir", ckpt, "--inv_method", inv, "--method_cfg", mcfg]
         cmd += ["-s", src, "-t", tgt, "--edit_method", ed] if ed else ["-p", src]
         label = f"{entry} {inv}" + (f"+{ed}" if ed else "") + ("" if mcfg == "{}" else f" {mcfg}")
-        t0 = time.monotonic()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
-                              env={**os.environ, "PYTHONPATH": str(ROOT)})
-        wall = time.monotonic() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"cli {label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
-        took = re.search(r"^Took ([0-9.]+)s$", proc.stdout, re.M)
-        launches = re.search(r"^kernel launches (\{.*\})$", proc.stdout, re.M)
-        if not (took and launches):
-            raise RuntimeError(f"cli {label}: no Took / kernel launches line in\n{proc.stdout}")
-        counts = {k: 0 for k in total}
-        counts.update(json.loads(launches.group(1)))
-        arr = np.asarray(Image.open(out))
-        _check_image(arr, f"cli {label}", 512)
-        if arr.std() == 0:
-            raise RuntimeError(f"cli {label}: a flat image")
         need = FWD_COUNTERS if ed in ("ptp", "pnp") else CLI_COUNTERS
-        missing = [k for k in need if counts[k] == 0]
-        if missing:
-            raise RuntimeError(f"cli {label}: never launched {missing}")
-        _check_opt_in_idle(counts, f"cli {label}")
+        secs, wall, counts = _cli_process(cmd, out, label, 512, need)
         for k, v in counts.items():
             total[k] += v
-        secs = float(took.group(1))
         log(f"[cli] {label}: {secs:.2f} s/edit at {steps} steps ({smi}); the process "
             f"{wall:.1f} s (start, kernel libraries, checkpoint load); launches "
             f"{json.dumps({k: v for k, v in counts.items() if v})}")
         runs.append({"run": label, "seconds_per_edit": secs, "process_seconds": wall,
                      "launches": {k: v for k, v in counts.items() if v}})
+    return {"launches": total, "runs": runs}
+
+
+# the families phase: (preset, steps) of its etainv+ptp edits at full width;
+# sd21 at the main path's 50 steps, the larger sd21v (768 px) and sdxl (1024
+# px) at 20 to fit the time limit
+FAMILY_RUNS = [("sd21", 50), ("sd21v", 20), ("sdxl", 20)]
+# nti + ptp on sdxl: steps x inner iterations
+FAMILY_NTI = (5, 2)
+# the tiny homologues' paths, card against CPU
+FAMILY_TINY_PATHS = [TINY_PATHS[0], ("diffinv", {}, "simple", {}, None, None),
+                     ("nti", {"num_inner_steps": 2}, "ptp", {}, TINY_PTP, None)]
+# the CLI run on sdxl (random weights)
+FAMILY_CLI_STEPS = 4
+# the text towers in bf16 against the same weights in fp32 (relative L2 of
+# the context): bf16 keeps 8 mantissa bits, a rounding of 2^-9 relative per
+# product, compounded through up to 32 residual layers (sdxl's bigG) and the
+# un-normed penultimate states; a wrong activation (quick-gelu for gelu)
+# or a dropped layer is O(1)
+TEXT_BF16_RTOL = 5e-2
+
+
+def _family_launches(metas, steps: int) -> dict:
+    """The launches one etainv+ptp edit should make, from the layer counts:
+    the forward loop's one-row UNet calls send every self-attention layer of
+    S >= 1024 to K1 (the eta mask stores cross maps only); the backward's
+    four-row calls send the layers above ptp's 32x32 threshold to K1 and
+    those at 32x32 (S = 1024) to K2 (the q/k substitution, flat); below
+    S = 1024 the plain path; the VAE's one attention layer is one K3 launch
+    in the encode and one in the decode (both images in one call)."""
+    selfs = [m for ms in metas.values() for m in ms if not m.is_cross and m.res ** 2 >= 1024]
+    big = sum(1 for m in selfs if m.res > 32)
+    at32 = sum(1 for m in selfs if m.res == 32)
+    return {"flash_attention_packed": steps * (big + at32) + steps * big,
+            "flash_attention_bhsd_onepass": steps * at32,
+            "flash_attention_bhsd_blockwise": 2}
+
+
+def _text_bf16_vs_fp32(model, prompt: str) -> float:
+    """Relative L2 of the bf16 context (both towers; sdxl's packed row) from
+    the same weights widened to fp32 (exact), text towers only."""
+    ids = model.tokenizer([prompt])
+    towers = [k for k in ("text", "text2") if k in model.nets]
+    with torch.no_grad():
+        bf = model.encode_text(ids).float()
+        dt = model.dtype
+        for k in towers:
+            model.nets[k].float()
+        model.dtype = torch.float32
+        try:
+            fp = model.encode_text(ids).float()
+        finally:
+            for k in towers:
+                model.nets[k].to(dt)
+            model.dtype = dt
+    return ((bf - fp).norm() / fp.norm()).item()
+
+
+def _family_nti(model, pre, post, image) -> dict:
+    """A short sdxl nti + ptp edit (FAMILY_NTI): the packed context row (77)
+    of every optimized null embedding must equal the unconditional
+    context's; then the inner gradient check (kernels against the plain
+    path within GRAD_RTOL)."""
+    from eta_inversion_tpu_torch import load_editor, load_inverter
+
+    steps, inner = FAMILY_NTI
+    inv = load_inverter(model, "nti", num_inference_steps=steps, num_inner_steps=inner)
+    seen = {}
+    optimize = inv.null_optimization
+
+    def spy(latents, context):
+        seen["out"], seen["context"] = optimize(latents, context), context
+        return seen["out"]
+
+    inv.null_optimization = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.monotonic()
+    res = load_editor(inv, "ptp").edit(image, "a cat sitting next to a mirror",
+                                       "a tiger sitting next to a mirror", cfg=dict(EDITOR_PTP))
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    counts, peak = _counts(), torch.cuda.max_memory_allocated()
+    size = model.image_size
+    if res is None or not torch.isfinite(res["image"]).all():
+        raise RuntimeError("sdxl nti+ptp: no result or a non-finite image")
+    _check_image(post(res["image"]), "sdxl nti+ptp", size)
+    ue, row = seen["out"]["uncond_embeddings"], seen["context"][:1, 77]
+    moved = max((ue[i, :, 77].float() - row.float()).abs().max().item() for i in range(steps))
+    text_moved = (ue[-1, :, :77].float() - seen["context"][:1, :77].float()).abs().max().item()
+    log(f"[families] sdxl nti+ptp ({steps} steps x up to {inner} inner): {secs:.2f} s/edit, "
+        f"peak device memory {peak / 2**30:.2f} GiB; packed row 77 of the null embeddings: max "
+        f"|change| {moved} over {steps} steps (must be 0), text rows {text_moved:.3e}; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    if moved != 0.0 or not text_moved > 0:
+        raise RuntimeError(f"sdxl nti moved the packed row ({moved}) or left the text rows "
+                           f"({text_moved})")
+    missing = _launched(counts, FWD_COUNTERS + K4)
+    if missing:
+        raise RuntimeError(f"sdxl nti+ptp never launched {missing}")
+    _check_opt_in_idle(counts, "sdxl nti+ptp")
+    grad = phase_grad_check(inv, tag="families")
+    return {"seconds_per_edit": secs, "peak_bytes": peak, "launches": counts, **grad}
+
+
+def _family_cli(steps: int) -> dict:
+    """python -m eta_inversion_tpu_torch.edit_image --model sdxl (random
+    weights, bf16) as a user runs it: a 1024x1024x3 PNG, K1-K3 launched."""
+    from PIL import Image
+
+    work = Path(tempfile.mkdtemp(prefix="families-cli-", dir=ROOT / "build"))
+    try:
+        png, out = work / "in.png", work / "out.png"
+        Image.fromarray((np.random.RandomState(5).rand(1024, 1024, 3) * 255)
+                        .astype(np.uint8)).save(png)
+        cmd = [sys.executable, "-m", "eta_inversion_tpu_torch.edit_image", "-i", str(png),
+               "-o", str(out), "--model", "sdxl", "--dtype", "bfloat16", "--steps", str(steps),
+               "--inv_method", "etainv", "--edit_method", "ptp",
+               "-s", "a cat sitting next to a mirror", "-t", "a tiger sitting next to a mirror"]
+        secs, wall, counts = _cli_process(cmd, out, "sdxl etainv+ptp", 1024, FWD_COUNTERS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[families] cli edit_image --model sdxl etainv+ptp: {secs:.2f} s/edit "
+        f"at {steps} steps; the process {wall:.1f} s (start, kernel libraries, random init); "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    return {"seconds_per_edit": secs, "process_seconds": wall, "launches": counts}
+
+
+def phase_families() -> dict:
+    """The other model families at full published width and depth, bf16,
+    random weights from seed 0, one model at a time (built, used, freed):
+    an etainv+ptp edit through load_inverter / load_editor / editor.edit
+    on sd21 (512 px), sd21v (768 px, v-prediction) and sdxl (1024 px)
+    (FAMILY_RUNS), each a finite image of the preset's size, with s/edit,
+    peak device memory and its launches against the layer counts'
+    prediction (_family_launches); each model's text towers in bf16 against
+    fp32; on sdxl a short nti + ptp edit with the packed row checked and the
+    inner gradient check.  Then the tiny homologues card against CPU and one
+    edit_image process on sdxl."""
+    from eta_inversion_tpu_torch import load_editor, load_inverter
+    from eta_inversion_tpu_torch.models import load_diffusion_model
+
+    total = {k: 0 for k in _counts()}
+    runs = []
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    src, tgt = "a cat sitting next to a mirror", "a tiger sitting next to a mirror"
+    for name, steps in FAMILY_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        model, (pre, post) = load_diffusion_model(name, dtype="bfloat16", seed=0, device="cuda")
+        torch.cuda.synchronize()
+        build_s, build_peak = time.monotonic() - t0, torch.cuda.max_memory_allocated()
+        size = model.image_size
+        text_err = _text_bf16_vs_fp32(model, src)
+        log(f"[families] {name} built in {build_s:.1f} s (random weights, seed 0, bf16; peak "
+            f"device memory {build_peak / 2**30:.2f} GiB while built: fp32 draws, then cast); "
+            f"{size} px, {model.latent_size}x{model.latent_size} latents, "
+            f"{sum(len(ms) for ms in model.attn_metas.values())} attention layers; text "
+            f"context bf16 vs fp32 rel L2 {text_err:.3e} (bound {TEXT_BF16_RTOL})")
+        if not text_err <= TEXT_BF16_RTOL:
+            raise RuntimeError(f"{name}: the bf16 text towers drift from fp32: {text_err}")
+        image = pre((np.random.RandomState(6).rand(size, size, 3) * 255).astype(np.uint8))
+        inv = load_inverter(model, "etainv", num_inference_steps=steps, **EDITOR_ETA)
+        ed = load_editor(inv, "ptp")
+        predicted = _family_launches(model.attn_metas, steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.monotonic()
+        res = ed.edit(image, src, tgt, cfg=dict(EDITOR_PTP), inv_cfg=dict(EDITOR_WIDX))
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        counts, peak = _counts(), torch.cuda.max_memory_allocated()
+        for key in ("image", "image_inv"):
+            if res is None or not torch.isfinite(res[key]).all():
+                raise RuntimeError(f"{name} etainv+ptp: no result or a non-finite {key}")
+            _check_image(post(res[key]), f"{name} etainv+ptp {key}", size)
+        got = {k: counts[k] for k in predicted}
+        log(f"[families] {name} etainv+ptp: {secs:.2f} s/edit at {steps} steps, {size} px; peak "
+            f"device memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+            f"launches {json.dumps({k: v for k, v in counts.items() if v})}; predicted from the "
+            f"layer counts {json.dumps(predicted)}")
+        missing = _launched(counts, [k for k, v in predicted.items() if v])
+        if missing:
+            raise RuntimeError(f"{name} etainv+ptp never launched {missing}")
+        if got != predicted:
+            raise RuntimeError(f"{name} etainv+ptp launches {got}, layer counts say {predicted}")
+        _check_opt_in_idle(counts, f"{name} etainv+ptp")
+        add(counts)
+        runs.append({"run": f"{name} etainv+ptp", "steps": steps, "size": size,
+                     "seconds_per_edit": secs, "peak_bytes": peak, "build_seconds": build_s,
+                     "text_bf16_rel_l2": text_err, "launches": got})
+        del inv, ed, res
+        if name == "sdxl":
+            nti = _family_nti(model, pre, post, image)
+            add(nti.pop("launches"))
+            runs.append({"run": "sdxl nti+ptp", **nti})
+        del model, pre, post
+    torch.cuda.empty_cache()
+    for preset in ("tiny21", "tinyv", "tinyxl"):
+        phase_tiny_reference(preset, FAMILY_TINY_PATHS, tag="families")
+    cli = _family_cli(FAMILY_CLI_STEPS)
+    add(cli.pop("launches"))
+    runs.append({"run": "cli sdxl etainv+ptp", **cli})
     return {"launches": total, "runs": runs}
 
 
@@ -2568,13 +2832,15 @@ def _multipart(fields: dict, png: bytes):
 
 
 PHASES = ("device", "build", "kernels", "fused", "microbench", "serving", "batched", "fp32",
-          "nti", "editors", "checkpoint", "cli")
+          "nti", "editors", "families", "checkpoint", "cli")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--nti_steps", type=int, default=50)
+    # the sd15 nti edit at 25 steps (the inverter's default is 50): it took
+    # 92-111 s of a 762 s run at 50 once the families phase came (PR 20)
+    ap.add_argument("--nti_steps", type=int, default=25)
     ap.add_argument("--nti_inner", type=int, default=10)
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
@@ -2603,6 +2869,9 @@ def main(argv=None) -> int:
         by_phase["nti"] = phase_nti(args.nti_steps, args.nti_inner)["launches"]
     if "editors" in phases:
         by_phase["editors"] = phase_editors(args.steps)["launches"]
+    if "families" in phases:
+        (ROOT / "build").mkdir(exist_ok=True)
+        by_phase["families"] = phase_families()["launches"]
     if "checkpoint" in phases or "cli" in phases:
         # the sd15 checkpoint (fp32, about 4.3 GB) lives under build/ for the
         # two phases and goes with them

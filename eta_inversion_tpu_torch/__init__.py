@@ -10,9 +10,11 @@ Ported: every inverter and editor of the JAX registry -- the main path
 through the flash attention backward kernels), npi, dirinv, ddpminv /
 cyclediff, proxnpi, edict and regdiffinv over the ddim / ddpm / dpm
 schedulers; the simple, ptp, masactrl, pnp, pix2pix_zero and invedit
-editors, single and pair-batched -- with diffusers checkpoints from a local
-directory and the `edit_image` / `invert_image` / `serve` entry points (see
-ROADMAP.md for what is still to come).
+editors, single and pair-batched -- on the JAX package's eight model presets
+(SD-1.5, SD-2.1 base, SD-2.1-v at 768 px, SDXL and their tiny homologues),
+with diffusers checkpoints from a local directory and the `edit_image` /
+`invert_image` / `serve` entry points (see ROADMAP.md for what is still to
+come).
 """
 
 from __future__ import annotations

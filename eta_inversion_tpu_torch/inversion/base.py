@@ -126,13 +126,32 @@ class DiffusionInversion:
         per-branch scales."""
         return eps_u + guidance_scale * (eps_c - eps_u)
 
+    def to_eps(self, out, x, t):
+        """A raw UNet output in epsilon space under the schedule's
+        prediction_type, so every inverter and editor works on noise
+        predictions whatever the family's parameterisation.  v_prediction
+        (SD-2.1 768-v): eps = sqrt(a_t) v + sqrt(1 - a_t) x_t, diffusers'
+        DDIMScheduler's `pred_epsilon`; affine with coefficients summing to 1,
+        so it commutes with the CFG combination.  `t` an int or a (rows,)
+        tensor of per-row timesteps."""
+        if self.schedule.config.prediction_type != "v_prediction":
+            return out
+        if isinstance(t, torch.Tensor) and t.dim() > 0:
+            a = torch.stack([self.schedule.alpha_at(int(s)) for s in t.tolist()])
+            a = a.to(out.device).reshape((-1,) + (1,) * (out.dim() - 1))
+        else:
+            a = self.schedule.alpha_at(t).to(out.device)
+        return (torch.sqrt(a) * out.float() + torch.sqrt(1.0 - a) * x.float()).to(out.dtype)
+
     def predict_noise(self, latent, t: int, context, guidance_scale, hooks=None,
                       collect_store: bool = False, force_full_cfg: bool = False,
                       is_fwd: bool = False):
         """UNet noise prediction with classifier-free guidance.  Returns
         (eps, store) where store maps store keys to the probabilities the
         hooks asked to record (empty unless collect_store).  `is_fwd` marks
-        a call of the forward (inversion) loop, for `combine_guidance`."""
+        a call of the forward (inversion) loop, for `combine_guidance`.  A
+        v-prediction output is converted (`to_eps`) before the combination,
+        each guidance half against its own latent rows."""
         store: Dict[str, torch.Tensor] = {}
         st = store if collect_store else None
         # a hooks' UNet row plan (pnp): gather the UNet's rows before the call
@@ -153,11 +172,11 @@ class DiffusionInversion:
         scalar_gs = isinstance(guidance_scale, (int, float)) and not force_full_cfg
         n = context.shape[0] // 2
         if guidance_scale is None:
-            eps = unet(latent, context)
+            eps = self.to_eps(unet(latent, context), latent, t)
         elif scalar_gs and guidance_scale == 0:
-            eps = unet(latent, context[:n])
+            eps = self.to_eps(unet(latent, context[:n]), latent, t)
         elif scalar_gs and guidance_scale == 1:
-            eps = unet(latent, context[n:])
+            eps = self.to_eps(unet(latent, context[n:]), latent, t)
         else:
             if latent.shape[0] * 2 == context.shape[0]:
                 # both guidance halves carry the same latent: with a hook-free
@@ -168,17 +187,21 @@ class DiffusionInversion:
                     eps_all = unet(torch.cat([latent, latent], dim=0), context)
             else:
                 eps_all = unet(latent, context)
-            eps = self.combine_guidance(eps_all[:n], eps_all[n:], guidance_scale, latent, t,
-                                        is_fwd=is_fwd)
+            x_u, x_c = (latent[:n], latent[n:]) if latent.shape[0] == 2 * n else (latent, latent)
+            eps = self.combine_guidance(self.to_eps(eps_all[:n], x_u, t),
+                                        self.to_eps(eps_all[n:], x_c, t), guidance_scale,
+                                        latent, t, is_fwd=is_fwd)
         return eps, store
 
     def _cfg_prefix_ok(self, hooks) -> bool:
         """Is the CFG shared prefix exact for these hooks?  With no hooks, or
         hooks that provably leave the UNet's prefix through the first
         self-attention layer alone (AttnHooks.cfg_prefix_safe) and carry no
-        batch-restructuring plan (`unet_in_rows`).  The port's presets have
-        no added conditioning, which JAX also checks (SDXL's pooled text
-        embedding tells the rows apart from the first resnet)."""
+        batch-restructuring plan (`unet_in_rows`).  Never with added
+        conditioning (SDXL): the pooled text embedding tells the rows apart
+        from the first resnet."""
+        if self.model.preset.unet.addition_embed:
+            return False
         if hooks is None:
             return True
         if hooks.unet_in_rows is not None:

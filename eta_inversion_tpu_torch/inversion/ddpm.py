@@ -83,7 +83,9 @@ class DDPMInversion(DiffusionInversion):
             t = t.repeat_interleave(b)
             eps_all = self.model.unet(torch.cat([xt, xt]), torch.cat([t, t]), ctx)
             eps_u, eps_c = eps_all[:chunk * b], eps_all[chunk * b:]
-            eps = (eps_u + gs * (eps_c - eps_u)).reshape((chunk,) + shape)
+            # a v-prediction converts after the CFG combination, with which it
+            # commutes, against each row's own x_t and t
+            eps = self.to_eps(eps_u + gs * (eps_c - eps_u), xt, t).reshape((chunk,) + shape)
             for j in range(chunk):
                 i = c0 + j
                 xtm1, z = ddpm_inverse_step(self.schedule, eps[j], int(ts_asc[i]), xt_all[i],

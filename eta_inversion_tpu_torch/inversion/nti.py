@@ -8,7 +8,10 @@ step reproduces the recorded forward trajectory.  Adam with lr =
 loss drops below `early_stop_epsilon + i * 2e-5`, and the update of the
 iteration that triggered the stop is still applied; the optimized embedding
 warm-starts the next timestep, then one denoise step with it gives the next
-latent.
+latent.  The UNet's output goes through `to_eps` (v-prediction).  With added
+conditioning (SDXL) the packed row past the 77 text rows is fixed
+conditioning, not a parameter: it is put back after every update, as JAX's
+`opt_rows` does.
 
 The JAX `lax.scan` / `lax.while_loop` / `jax.grad` become Python loops and
 `torch.autograd.grad` with respect to the embedding alone (the nets keep
@@ -49,10 +52,16 @@ class NullTextInversion(DiffusionInversion):
         {"uncond_embeddings": (S, 1, 77, D), "inner_steps": [iterations per
         step], "losses": [[pre-update loss per iteration] per step]}."""
         ts = self.schedule.timesteps_backward
-        unet = self.model.unet
+        ucfg = self.model.preset.unet
+        opt_rows = ucfg.context_tokens if ucfg.addition_embed else None
+
+        def unet(lat, t, ctx):
+            return self.to_eps(self.model.unet(lat, t, ctx), lat, t)
+
         with torch.inference_mode(False), torch.enable_grad():
             latents, context = latents.clone(), context.clone()
             uncond, cond = context.chunk(2)
+            uncond0 = uncond
             latent_prev_all = torch.flip(latents, dims=[0])[1:]  # step i's target
             latent_cur = latents[-1]
             out, inner_steps, losses = [], [], []
@@ -79,6 +88,8 @@ class NullTextInversion(DiffusionInversion):
                     mh = m / (1.0 - 0.9 ** j)
                     vh = v / (1.0 - 0.999 ** j)
                     uncond = (u - lr * mh / (torch.sqrt(vh) + 1e-8)).detach()
+                    if opt_rows is not None:  # the packed row stays fixed
+                        uncond[:, opt_rows:] = uncond0[:, opt_rows:]
                     step_losses.append(loss.item())
                 with torch.no_grad():  # denoise one step with the optimized embedding
                     eps_u = unet(latent_cur, t, uncond)

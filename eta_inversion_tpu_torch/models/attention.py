@@ -110,31 +110,46 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """GroupNorm -> 1x1 conv in -> transformer block(s) -> 1x1 conv out,
-    residual (SD-1.x projections)."""
+    """GroupNorm -> proj in -> transformer block(s) -> proj out, residual.
+    The projections are 1x1 convs on the map (SD-1.x) or, with `use_linear`,
+    linear layers on the flattened (B, h*w, C) tokens (SD-2.x / XL
+    `use_linear_projection`: the tokens are flattened before proj_in and
+    unflattened after proj_out).  `metas` holds one (self, cross) pair per
+    block (SDXL's depth > 1)."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, context_dim: int,
-                 metas: Tuple[AttnLayerMeta, ...], groups: int = 32):
+                 metas: Tuple[AttnLayerMeta, ...], groups: int = 32, use_linear: bool = False):
         super().__init__()
         inner = heads * head_dim
+        self.use_linear = use_linear
         self.norm = GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, inner, 1)
+        self.proj_in = nn.Linear(channels, inner) if use_linear else \
+            nn.Conv2d(channels, inner, 1)
         for d in range(len(metas) // 2):
             self.add_module(f"blocks_{d}", BasicTransformerBlock(
                 heads, head_dim, context_dim, metas[2 * d], metas[2 * d + 1]))
         self.depth = len(metas) // 2
-        self.proj_out = nn.Conv2d(inner, channels, 1)
+        self.proj_out = nn.Linear(inner, channels) if use_linear else \
+            nn.Conv2d(inner, channels, 1)
 
     def forward(self, x, context, hooks=None, store=None, dup: bool = False):
-        """`dup`: the first block tiles the rows ×2 (the CFG shared prefix's
+        """`dup`: the first block tiles the rows x2 (the CFG shared prefix's
         end, BasicTransformerBlock); the residual is tiled to match."""
         b, c, h, w = x.shape
         residual = x
-        y = self.proj_in(self.norm(x).to(x.dtype))
-        y = y.permute(0, 2, 3, 1).reshape(b, h * w, -1)  # tokens in (h, w) order
+
+        def tokens(y):  # (B, C, h, w) -> (B, h*w, C), tokens in (h, w) order
+            return y.permute(0, 2, 3, 1).reshape(y.shape[0], h * w, -1)
+
+        y = self.norm(x).to(x.dtype)
+        y = self.proj_in(tokens(y)) if self.use_linear else tokens(self.proj_in(y))
         for d in range(self.depth):
             y = getattr(self, f"blocks_{d}")(y, context, hooks, store, dup=dup and d == 0)
+        if self.use_linear:
+            y = self.proj_out(y)
         y = y.reshape(-1, h, w, y.shape[-1]).permute(0, 3, 1, 2)
+        if not self.use_linear:
+            y = self.proj_out(y)
         if residual.shape[0] != y.shape[0]:
             residual = residual.repeat(y.shape[0] // residual.shape[0], 1, 1, 1)
-        return self.proj_out(y) + residual
+        return y + residual

@@ -2,17 +2,21 @@
 
 Counterpart of the text half of eta_inversion_tpu/models/clip.py: causal
 transformer over 77 tokens with quick-gelu MLPs (OpenAI CLIP, as SD-1.x
-uses), final-LayerNorm hidden states (fp32, as the JAX package's fp32
-LayerNorm returns them).  The SD-2.x / SDXL options (exact gelu, penultimate
-layer, pooled projection) and the vision tower are not ported yet.
+uses) or exact-erf gelu (OpenCLIP's towers of SD-2.x and SDXL, HF's "gelu"),
+final-LayerNorm hidden states (fp32, as the JAX package's fp32 LayerNorm
+returns them) or, with `penultimate`, the states before the last layer
+(SDXL), and with `projection_dim` the projected pooled embedding beside them
+(SDXL's second tower).  The vision tower is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .layers import LayerNorm
 
@@ -24,6 +28,13 @@ class CLIPTextConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_length: int = 77
+    act: str = "quick_gelu"  # or "gelu" (exact erf)
+    # SDXL: condition on the penultimate layer's hidden states (un-normed);
+    # the last layer and the final norm still run, for the pooled output
+    penultimate: bool = False
+    # CLIPTextModelWithProjection: the eos row of the final normed states
+    # times `text_projection` (hidden, projection_dim)
+    projection_dim: Optional[int] = None
 
 
 class CLIPAttention(nn.Module):
@@ -52,8 +63,11 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPLayer(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, act: str = "quick_gelu"):
         super().__init__()
+        if act not in ("quick_gelu", "gelu"):
+            raise ValueError(f"CLIP activation {act!r}: quick_gelu or gelu")
+        self.act = act
         self.layer_norm1 = LayerNorm(dim, eps=1e-5)
         self.self_attn = CLIPAttention(dim, num_heads)
         self.layer_norm2 = LayerNorm(dim, eps=1e-5)
@@ -64,7 +78,8 @@ class CLIPLayer(nn.Module):
         dt = x.dtype
         x = x + self.self_attn(self.layer_norm1(x).to(dt))
         h = self.fc1(self.layer_norm2(x).to(dt))
-        return x + self.fc2(h * torch.sigmoid(1.702 * h))  # quick-gelu
+        h = h * torch.sigmoid(1.702 * h) if self.act == "quick_gelu" else F.gelu(h)
+        return x + self.fc2(h)
 
 
 class CLIPTextEncoder(nn.Module):
@@ -74,13 +89,32 @@ class CLIPTextEncoder(nn.Module):
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embedding = nn.Parameter(torch.zeros(cfg.max_length, cfg.hidden_size))
         for i in range(cfg.num_layers):
-            self.add_module(f"layers_{i}", CLIPLayer(cfg.hidden_size, cfg.num_heads))
+            self.add_module(f"layers_{i}", CLIPLayer(cfg.hidden_size, cfg.num_heads, cfg.act))
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Parameter(torch.zeros(cfg.hidden_size,
+                                                            cfg.projection_dim))
 
     def forward(self, input_ids):
-        """input_ids: (B, 77) int -> (B, 77, hidden) fp32 hidden states."""
+        """input_ids: (B, 77) int -> (B, 77, hidden) hidden states: the final
+        normed ones (fp32), or with `penultimate` the input of the last layer
+        (the parameters' dtype).  With `projection_dim`, (hidden states,
+        (B, projection_dim) pooled embedding): the final normed row at the
+        eos token (the largest id, OpenAI CLIP's convention) times
+        text_projection."""
+        cfg = self.config
         x = self.token_embedding(input_ids)
         x = x + self.position_embedding[None, : x.shape[1]].to(x.dtype)
-        for i in range(self.config.num_layers):
+        penult = x
+        for i in range(cfg.num_layers):
+            if i == cfg.num_layers - 1:
+                penult = x
             x = self._modules[f"layers_{i}"](x)
-        return self.final_layer_norm(x)
+        x = self.final_layer_norm(x)
+        hidden = penult if cfg.penultimate else x
+        if cfg.projection_dim is None:
+            return hidden
+        eos = input_ids.argmax(dim=-1)
+        pooled = x[torch.arange(x.shape[0], device=x.device), eos]
+        dt = self.text_projection.dtype
+        return hidden, pooled.to(dt) @ self.text_projection

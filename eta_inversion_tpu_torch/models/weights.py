@@ -2,8 +2,9 @@
 port's modules.
 
 Counterpart of eta_inversion_tpu/models/weights.py.  Weights arrive as local
-files (no network): `{unet,vae,text_encoder}/*.safetensors` (and optionally
-`tokenizer/vocab.json` + `merges.txt`).  This module holds
+files (no network): `{unet,vae,text_encoder}/*.safetensors` (SDXL also
+`text_encoder_2/`; and optionally `tokenizer/vocab.json` + `merges.txt`).
+This module holds
 
   * a dependency-free safetensors reader and writer (an 8-byte little-endian
     header length, a JSON header, the raw tensor bytes), F32 / F16 / BF16 /
@@ -13,17 +14,21 @@ files (no network): `{unet,vae,text_encoder}/*.safetensors` (and optionally
     (models/convert.py), so each map is the JAX package's with the flax
     path joined by "." and the leaf renamed as torch names it (kernel,
     scale, embedding -> weight).  Torch layouts are diffusers' own, so no
-    value is transposed: only the legacy VAE attention keys (renamed, their
-    (C, C, 1, 1) 1x1-conv weights squeezed to linear (C, C)) and a 1x1-conv
-    vs linear projection (same values, another shape) are not the identity;
+    value is transposed but SDXL's `text_projection` (a raw (hidden, proj)
+    parameter, as the flax module keeps it, stored by transformers as a
+    bias-free linear (proj, hidden) weight: TRANSPOSED); the legacy VAE
+    attention keys (renamed, their (C, C, 1, 1) 1x1-conv weights squeezed to
+    linear (C, C)) and a 1x1-conv vs linear projection (same values, another
+    shape) are the other keys that are not the identity;
   * `load_pretrained_params(nets, weights_dir, preset)`, which copies the
     checkpoint into the modules one tensor at a time: each tensor is read
     into a buffer of its own size and copied to the module's device and
     dtype before the next is read, so a 3.4 GB fp32 UNet file never sits
     whole on the host.
 
-The maps cover the port's presets (SD-1.x geometry: transformer depth 1,
-1x1-conv projections, one text tower).
+The maps cover the port's presets: SD-1.x (1x1-conv projections), SD-2.x
+(linear projections) and SDXL (transformer depth, `add_embedding`, the
+second text tower with its projection).
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
 _NAMES = {v: k for k, v in DTYPES.items()}
 
 KeyMap = Dict[str, str]  # diffusers key -> the port's state-dict key
+# the diffusers keys whose value is the transpose of the port's parameter
+TRANSPOSED = frozenset({"text_projection.weight"})
 
 
 # ---------------------------------------------------------------------------
@@ -156,19 +163,22 @@ def _resnet(m: KeyMap, tp: str, pp: str, time_emb: bool = True,
         _conv(m, f"{tp}.conv_shortcut", f"{pp}.conv_shortcut")
 
 
-def _transformer(m: KeyMap, tp: str, pp: str) -> None:
+def _transformer(m: KeyMap, tp: str, pp: str, depth: int = 1) -> None:
+    """A Transformer2D of `depth` blocks; its projections' weight and bias
+    keep their names whether 1x1 convs or linear layers."""
     _norm(m, f"{tp}.norm", f"{pp}.norm")
     _conv(m, f"{tp}.proj_in", f"{pp}.proj_in")
     _conv(m, f"{tp}.proj_out", f"{pp}.proj_out")
-    b, pb = f"{tp}.transformer_blocks.0", f"{pp}.blocks_0"
-    for n in ("norm1", "norm2", "norm3"):
-        _norm(m, f"{b}.{n}", f"{pb}.{n}")
-    for attn in ("attn1", "attn2"):
-        for proj in ("to_q", "to_k", "to_v"):
-            _dense(m, f"{b}.{attn}.{proj}", f"{pb}.{attn}.{proj}", bias=False)
-        _dense(m, f"{b}.{attn}.to_out.0", f"{pb}.{attn}.to_out")
-    _dense(m, f"{b}.ff.net.0.proj", f"{pb}.ff.geglu_proj")
-    _dense(m, f"{b}.ff.net.2", f"{pb}.ff.proj_out")
+    for d in range(depth):
+        b, pb = f"{tp}.transformer_blocks.{d}", f"{pp}.blocks_{d}"
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(m, f"{b}.{n}", f"{pb}.{n}")
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                _dense(m, f"{b}.{attn}.{proj}", f"{pb}.{attn}.{proj}", bias=False)
+            _dense(m, f"{b}.{attn}.to_out.0", f"{pb}.{attn}.to_out")
+        _dense(m, f"{b}.ff.net.0.proj", f"{pb}.ff.geglu_proj")
+        _dense(m, f"{b}.ff.net.2", f"{pb}.ff.proj_out")
 
 
 def unet_key_map(cfg: UNetConfig) -> KeyMap:
@@ -184,22 +194,27 @@ def unet_key_map(cfg: UNetConfig) -> KeyMap:
             _resnet(m, f"down_blocks.{i}.resnets.{j}", f"down_{i}_resnet_{j}",
                     has_shortcut=in_ch != ch)
             if cfg.attn_down[i]:
-                _transformer(m, f"down_blocks.{i}.attentions.{j}", f"down_{i}_attn_{j}")
+                _transformer(m, f"down_blocks.{i}.attentions.{j}", f"down_{i}_attn_{j}",
+                             cfg.depth_for(i))
         if i < cfg.num_stages - 1:
             _conv(m, f"down_blocks.{i}.downsamplers.0.conv", f"down_{i}_downsample.conv")
         ch_prev = ch
     _resnet(m, "mid_block.resnets.0", "mid_resnet_0")
     _resnet(m, "mid_block.resnets.1", "mid_resnet_1")
-    _transformer(m, "mid_block.attentions.0", "mid_attn")
+    _transformer(m, "mid_block.attentions.0", "mid_attn", cfg.depth_for(cfg.num_stages - 1))
     # up path: every resnet concatenates a skip, so each has a shortcut
     for up_i, stage in enumerate(reversed(range(cfg.num_stages))):
         for j in range(cfg.layers_per_block + 1):
             _resnet(m, f"up_blocks.{up_i}.resnets.{j}", f"up_{up_i}_resnet_{j}",
                     has_shortcut=True)
             if cfg.attn_down[stage]:
-                _transformer(m, f"up_blocks.{up_i}.attentions.{j}", f"up_{up_i}_attn_{j}")
+                _transformer(m, f"up_blocks.{up_i}.attentions.{j}", f"up_{up_i}_attn_{j}",
+                             cfg.depth_for(stage))
         if stage > 0:
             _conv(m, f"up_blocks.{up_i}.upsamplers.0.conv", f"up_{up_i}_upsample.conv")
+    if cfg.addition_embed:  # SDXL's text_time MLP
+        _dense(m, "add_embedding.linear_1", "add_embedding.linear_1")
+        _dense(m, "add_embedding.linear_2", "add_embedding.linear_2")
     _norm(m, "conv_norm_out", "conv_norm_out")
     _conv(m, "conv_out", "conv_out")
     return m
@@ -253,7 +268,8 @@ def vae_key_map(cfg: VAEConfig) -> KeyMap:
 
 
 def clip_text_key_map(cfg: CLIPTextConfig) -> KeyMap:
-    """transformers CLIPTextModel names -> CLIPTextEncoder's."""
+    """transformers CLIPTextModel (CLIPTextModelWithProjection with a
+    projection_dim) names -> CLIPTextEncoder's."""
     p = "text_model"
     m: KeyMap = {f"{p}.embeddings.token_embedding.weight": "token_embedding.weight",
                  f"{p}.embeddings.position_embedding.weight": "position_embedding"}
@@ -266,6 +282,8 @@ def clip_text_key_map(cfg: CLIPTextConfig) -> KeyMap:
         _dense(m, f"{lp}.mlp.fc1", f"{pp}.fc1")
         _dense(m, f"{lp}.mlp.fc2", f"{pp}.fc2")
     _norm(m, f"{p}.final_layer_norm", "final_layer_norm")
+    if cfg.projection_dim is not None:  # bias-free, outside text_model
+        m["text_projection.weight"] = "text_projection"
     return m
 
 
@@ -292,6 +310,14 @@ def _legacy_value(name: str, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _value(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Checkpoint tensor `name` in the layout of the port's parameter: a
+    TRANSPOSED key's transpose, a legacy weight squeezed, any other as it
+    is.  Written back, the port's value of a TRANSPOSED key is transposed
+    the same way."""
+    return x.t() if legacy_key(name) in TRANSPOSED else _legacy_value(name, x)
+
+
 def normalize_legacy_keys(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Rename legacy diffusers VAE attention keys to the modern layout and
     squeeze their conv-style (C, C, 1, 1) projection weights to (C, C)."""
@@ -316,17 +342,22 @@ def map_names(names: Iterable[str], key_map: KeyMap, strict: bool = True) -> Dic
 
 def map_state_dict(state: Mapping[str, torch.Tensor], key_map: KeyMap,
                    strict: bool = True) -> Dict[str, torch.Tensor]:
-    """A diffusers state dict -> the port's names (`map_names`; legacy
-    weights squeezed as `normalize_legacy_keys` does, other values as they
-    are)."""
-    return {key: _legacy_value(name, state[name])
+    """A diffusers state dict -> the port's names (`map_names`) and layouts
+    (`_value`: a TRANSPOSED key transposed, legacy weights squeezed as
+    `normalize_legacy_keys` does, other values as they are)."""
+    return {key: _value(name, state[name])
             for name, key in map_names(state, key_map, strict).items()}
 
 
 # the checkpoint's subdirectories, the port's module of each, its key map
+# (None where the preset has no such module)
 COMPONENTS = (("unet", "unet", lambda p: unet_key_map(p.unet)),
               ("vae", "vae", lambda p: vae_key_map(p.vae)),
-              ("text_encoder", "text", lambda p: clip_text_key_map(p.text)))
+              ("text_encoder", "text", lambda p: clip_text_key_map(p.text)),
+              ("text_encoder_2", "text2",
+               lambda p: None if p.text2 is None else clip_text_key_map(p.text2)))
+
+
 
 
 def _fit(name: str, x: torch.Tensor, shape: torch.Size) -> torch.Tensor:
@@ -362,15 +393,17 @@ def load_component_(module: nn.Module, files: Iterable[str], key_map: KeyMap) ->
         for path, names in by_file.items():
             for name, x in iter_safetensors(path, names):
                 p = targets[names[name]]
-                p.copy_(_fit(name, _legacy_value(name, x), p.shape))
+                p.copy_(_fit(name, _value(name, x), p.shape))
 
 
 def load_pretrained_params(nets: Mapping[str, nn.Module], weights_dir: str, preset) -> None:
     """Load a diffusers-layout directory ({unet,vae,text_encoder}/
-    *.safetensors) into `nets` ({"unet", "vae", "text"} modules, on their
-    device in their dtype).  FileNotFoundError for a subdirectory without
-    safetensors files."""
+    *.safetensors, SDXL also text_encoder_2/) into `nets` ({"unet", "vae",
+    "text"[, "text2"]} modules, on their device in their dtype).
+    FileNotFoundError for a subdirectory without safetensors files."""
     for sub, net, key_map in COMPONENTS:
+        if key_map(preset) is None:
+            continue
         files = sorted(glob.glob(os.path.join(weights_dir, sub, "*.safetensors")))
         if not files:
             raise FileNotFoundError(f"no safetensors under {os.path.join(weights_dir, sub)}")
@@ -381,9 +414,12 @@ def save_pretrained(nets: Mapping[str, nn.Module], weights_dir: str, preset) -> 
     """Write `nets` as a diffusers-layout directory (the inverse key maps),
     one safetensors file a component, each tensor in its dtype."""
     for sub, net, key_map in COMPONENTS:
+        kmap = key_map(preset)
+        if kmap is None:
+            continue
         params = dict(nets[net].named_parameters())
         os.makedirs(os.path.join(weights_dir, sub), exist_ok=True)
-        name = "model.safetensors" if sub == "text_encoder" else \
+        name = "model.safetensors" if sub.startswith("text_encoder") else \
             "diffusion_pytorch_model.safetensors"
         write_safetensors(os.path.join(weights_dir, sub, name),
-                          {k: params[v] for k, v in key_map(preset).items()})
+                          {k: _value(k, params[v].detach()) for k, v in kmap.items()})

@@ -23,7 +23,9 @@ editor.edit, the others one pair-batched edit (editing/batched.edit_batch).
 --dtype is bfloat16 (the default) or float32: on the card fp32 attention
 runs on the TF32 tensor cores: up to head dim 128 on the TF32 modes of the
 narrow forward and backward, above it on csrc/flash_attention_bwd_tf32.cu
-(ops/flash_attention.py).  Weights are a seeded random init.
+(ops/flash_attention.py).  Weights are a seeded random init.  --model is
+any of the port's presets: sd15, sd21 (512 px), sd21v (768 px,
+v-prediction), sdxl (1024 px) and their tiny homologues.
 """
 
 from __future__ import annotations
@@ -143,8 +145,11 @@ class EditHandler(BaseHTTPRequestHandler):
 
 
 def parse_args(argv=None):
+    from .models import PRESETS
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="sd15")
+    ap.add_argument("--model", default="sd15", choices=sorted(PRESETS),
+                    help="model preset (random weights)")
     ap.add_argument("--inverter", default="etainv")
     ap.add_argument("--editor", default="ptp")
     ap.add_argument("--steps", type=int, default=50)

@@ -5,7 +5,8 @@ One tiny JAX parameter tree (tests/torch_port_util.py's) is exported as a
 diffusers-layout checkpoint directory with the JAX package's key maps; the
 root CLI (its `main`, in this process) and the port's (`--device cpu --dtype
 float32`) run on it with the same image and flags, for inverters that draw
-nothing, and their PNGs must agree within PNG_LEVELS uint8 levels.  The
+nothing, and their PNGs must agree within PNG_LEVELS uint8 levels; so must
+one tinyxl run (the SDXL geometry, its checkpoint with text_encoder_2/).  The
 flag table is held against JAX's `_ARGS` and the root CLIs' own flags, and
 what the port still lacks exits with its message.
 """
@@ -78,6 +79,32 @@ def test_edit_image_matches_the_jax_cli(checkpoint, tmp_path, inv_method):
         "--dtype", "float32"]))
     _close(got, want)
     _close(got_inv, want_inv)
+
+
+def test_edit_image_tinyxl_matches_the_jax_cli(tmp_path):
+    """The SDXL-geometry preset through both CLIs on one tinyxl checkpoint
+    (text_encoder_2/ with its projection; the packed 78-row context):
+    diffinv + ptp with the automatic config; and every port preset is named
+    in the --model help."""
+    import edit_image as jcli
+    from eta_inversion_tpu_torch import edit_image
+    from eta_inversion_tpu_torch.models import PRESETS
+    from eta_inversion_tpu_torch.utils.cli_utils import _ARGS
+    from tests.torch_port_util import write_tiny_checkpoint
+
+    assert all(name in _ARGS["model"]["help"] for name in PRESETS)
+    weights, png = write_tiny_checkpoint(tmp_path, preset="tinyxl")
+    assert (tmp_path / "text_encoder_2" / "model.safetensors").exists()
+    want, got = tmp_path / "jax.png", tmp_path / "port.png"
+    jcli.main(argparse.Namespace(
+        input=png, output=str(want), output_inv=None, source_prompt=SRC, target_prompt=TGT,
+        inv_method="diffinv", edit_method="ptp", model="tinyxl", steps=STEPS, dtype="float32",
+        seed=0, weights_dir=weights, method_cfg="{}", editor_cfg="{}", edit_cfg=None))
+    edit_image.main(edit_image.build_parser().parse_args([
+        "-i", png, "-o", str(got), "-s", SRC, "-t", TGT, "--inv_method", "diffinv",
+        "--edit_method", "ptp", "--model", "tinyxl", "--steps", str(STEPS),
+        "--weights_dir", weights, "--device", "cpu", "--dtype", "float32"]))
+    _close(got, want)
 
 
 def test_invert_image_matches_the_jax_cli(checkpoint, tmp_path):

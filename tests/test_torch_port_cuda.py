@@ -47,6 +47,15 @@ def _inputs(shape, seed=0):
     ("blockwise", 2, 4096, 1, 512),  # the VAE decode's two rows at 512 px
     ("blockwise", 1, 4225, 1, 512),  # 65 x 65 tokens: ragged at d = 512
     ("packed", 2, 1024, 2, 160),     # the wide kernel's head strides
+    # the other families at d = 64: sd21's 5 / 10 heads at 512 px, sd21v's at
+    # 768 px (S = 9216, 2304), sdxl's 10 / 20 heads; ptp's flat q/k
+    # substitution at 32x32 (sd21's 10 heads, sdxl's 20, 4 rows); the VAE
+    # at 768 and 1024 px (S = 9216, 16384; d = 512)
+    ("packed", 4, 4096, 5, 64), ("packed", 4, 1024, 10, 64),
+    ("packed", 2, 9216, 5, 64), ("packed", 4, 2304, 10, 64),
+    ("packed", 4, 4096, 10, 64), ("packed", 2, 1024, 20, 64),
+    ("onepass", 40, 1024, 1, 64), ("onepass", 80, 1024, 1, 64),
+    ("blockwise", 2, 9216, 1, 512), ("blockwise", 1, 16384, 1, 512),
 ])
 def test_cuda_kernel_matches_plain(kind, b, s, h, d):
     if not torch.cuda.is_available():
@@ -312,6 +321,7 @@ def _flat(x, kind, h):
     ("packed", 2, 1024, 4, 64),
     ("flat", 2, 300, 1, 64),    # ragged S: masked key tail, partial q tile
     ("flat", 3, 1000, 1, 128),  # the largest head dim the backward takes
+    ("packed", 1, 4096, 10, 64), ("packed", 1, 1024, 20, 64),  # nti on sdxl
 ])
 def test_cuda_backward_kernels_match_plain(kind, b, s, h, d):
     """K4a against dQ and K4b against dK, dV of the plain backward, each

@@ -233,3 +233,29 @@ def test_serve_parses_max_batch_and_max_wait():
     args = serve.parse_args(["--model", "tiny", "--device", "cpu", "--max_batch", "16"])
     with pytest.raises(ValueError, match="largest bucket"):
         serve.build_server(args)
+
+
+@pytest.mark.parametrize("preset", ["tiny21", "tinyv", "tinyxl"])
+def test_serve_takes_the_family_presets(preset):
+    """`serve --model` takes every preset (and refuses another name); a
+    family preset's server coalesces two requests into one bucket-2
+    dispatch (tinyxl: the packed 78-row contexts of embed_texts), each
+    result its solo edit's."""
+    args = serve.parse_args(["--model", preset, "--device", "cpu", "--steps", str(STEPS),
+                             "--dtype", "float32", "--inverter", "diffinv",
+                             "--max_wait_ms", "2000", "--max_batch", "2"])
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--model", "sd3"])
+    server, _, _ = serve.build_server(args)
+    imgs = _images(2, seed=3)
+    try:
+        results = _submit_all(server, imgs, [dict(PTP_CFG)] * 2)
+    finally:
+        server.shutdown()
+    assert server.stats_snapshot()["dispatch_sizes"] == {2: 1}
+    for i, res in enumerate(results):
+        solo = server.editor.edit(imgs[i: i + 1], f"a cat number {i}", f"a tiger number {i}",
+                                  cfg=dict(PTP_CFG))
+        for key in ("image", "image_inv"):
+            np.testing.assert_allclose(res[key].numpy(), solo[key].numpy(), rtol=TOL, atol=TOL,
+                                       err_msg=f"{preset} request {i}: {key}")

@@ -4,8 +4,11 @@ on the CPU.
 The safetensors reader and writer round trip every dtype the port names
 (F16 and BF16 reads included) and read what the JAX writer writes; the key
 maps name exactly the diffusers keys of JAX's `unet_key_map` /
-`vae_key_map` / `clip_text_key_map` for the tiny and sd15 presets (built
-from the configs alone), each onto the port's name of the same flax path; a
+`vae_key_map` / `clip_text_key_map` for the tiny, sd15, tiny21, sd21,
+tinyxl and sdxl presets (built from the configs alone; SDXL's second tower
+too), each onto the port's name of the same flax path; tiny21 and tinyxl
+trees written by the JAX package's writer load into both packages with the
+same UNet output and text context; a
 JAX tiny random init, written as diffusers safetensors as
 tests/test_weights.py writes it, loads through `load_diffusion_model(...,
 weights_dir=...)` bit-equal to the same tree through the `from_jax_params`
@@ -17,10 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from eta_inversion_tpu.models import SD15 as JSD15, TINY as JTINY
+from eta_inversion_tpu.models import PRESETS as JPRESETS, TINY as JTINY
 from eta_inversion_tpu.models import weights as jw
 from eta_inversion_tpu_torch.models import PRESETS, load_diffusion_model
 from eta_inversion_tpu_torch.models import weights as tw
+from tests.torch_port_util import write_jax_checkpoint
 
 LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
@@ -41,19 +45,6 @@ def jax_tiny_init():
     from eta_inversion_tpu.models import init_random_params
 
     return jax.tree.map(np.asarray, init_random_params(JTINY))
-
-
-def _write_checkpoint(tree, root, preset=JTINY):
-    """A flax tree as a diffusers-layout directory, the JAX package's way
-    (its key maps' inverse transforms, tests/test_weights.py)."""
-    from tests.test_weights import to_torch_state
-
-    for sub, comp, key_map in (("unet", "unet", jw.unet_key_map(preset.unet)),
-                               ("vae", "vae", jw.vae_key_map(preset.vae)),
-                               ("text_encoder", "text", jw.clip_text_key_map(preset.text))):
-        (root / sub).mkdir(parents=True, exist_ok=True)
-        jw.write_safetensors(str(root / sub / "model.safetensors"),
-                             to_torch_state(tree[comp], key_map))
 
 
 def test_safetensors_round_trip(tmp_path):
@@ -95,31 +86,89 @@ def test_reads_what_the_jax_writer_writes(tmp_path):
         assert back[k].numpy().dtype == v.dtype
 
 
-@pytest.mark.parametrize("name,jpreset", [("tiny", JTINY), ("sd15", JSD15)])
-@pytest.mark.parametrize("component", ["unet", "vae", "text"])
+@pytest.mark.parametrize("name,jpreset", [(n, JPRESETS[n]) for n in
+                                          ("tiny", "sd15", "tiny21", "sd21", "tinyxl", "sdxl")])
+@pytest.mark.parametrize("component", ["unet", "vae", "text", "text2"])
 def test_key_maps_name_the_jax_maps_keys(name, jpreset, component):
     """The same diffusers keys as JAX's map, each onto the port's name of
     JAX's flax path (joined by ".", the leaf renamed as torch names it), and
-    every one a parameter of the port's module."""
+    every one a parameter of the port's module: SD-2.x's linear
+    projections, SDXL's depths, add_embedding and second tower with its
+    text_projection (the one key whose value is transposed)."""
     preset = PRESETS[name]
-    jmap, tmap = {
-        "unet": (jw.unet_key_map(jpreset.unet), tw.unet_key_map(preset.unet)),
-        "vae": (jw.vae_key_map(jpreset.vae), tw.vae_key_map(preset.vae)),
-        "text": (jw.clip_text_key_map(jpreset.text), tw.clip_text_key_map(preset.text)),
-    }[component]
+    if component == "text2" and preset.text2 is None:
+        assert jpreset.text2 is None
+        return
+    if component == "unet":
+        jmap, tmap = jw.unet_key_map(jpreset.unet), tw.unet_key_map(preset.unet)
+    elif component == "vae":
+        jmap, tmap = jw.vae_key_map(jpreset.vae), tw.vae_key_map(preset.vae)
+    else:
+        jmap = jw.clip_text_key_map(getattr(jpreset, component))
+        tmap = tw.clip_text_key_map(getattr(preset, component))
     assert set(tmap) == set(jmap)
-    for key, (path, _) in jmap.items():
+    for key, (path, (fwd, _)) in jmap.items():
         assert tmap[key] == ".".join(path[:-1] + (LEAVES.get(path[-1], path[-1]),)), key
-    if name == "tiny":
-        model, _ = load_diffusion_model("tiny", device="cpu")
+        # the values the port transposes: a raw flax parameter (no "kernel"
+        # leaf) that JAX's map transposes, SDXL's text_projection
+        assert (key in tw.TRANSPOSED) == (path[-1] == "text_projection" and fwd is jw.t_dense)
+    if name.startswith("tiny"):
+        model, _ = load_diffusion_model(name, device="cpu")
         assert set(tmap.values()) == set(dict(model.nets[component].named_parameters()))
+
+
+@pytest.mark.parametrize("name", ["tiny21", "tinyxl"])
+def test_family_checkpoint_round_trip(tmp_path, name):
+    """A tiny21 / tinyxl tree written as a diffusers directory by the JAX
+    package's writer and key maps (tinyxl: text_encoder_2/ with its
+    text_projection) loads into the port bit-equal to the same tree through
+    the bridge, and into the JAX package; both give the same UNet output and
+    text context (the packed 78 rows on tinyxl).  The port's own writer
+    writes the directory back with the same tensors."""
+    import jax.numpy as jnp
+
+    from eta_inversion_tpu.models import DiffusionModel as JModel
+    from eta_inversion_tpu.models.tokenizer import load_tokenizer
+    from tests.torch_port_util import tiny_pair
+
+    jax_model, bridged = tiny_pair(preset=name)
+    jpreset = JPRESETS[name]
+    write_jax_checkpoint(jax_model.params, tmp_path / "jax", jpreset)
+    loaded, _ = load_diffusion_model(name, device="cpu", weights_dir=str(tmp_path / "jax"))
+    want_state = bridged.nets.state_dict()
+    assert set(loaded.nets.state_dict()) == set(want_state)
+    for k, v in loaded.nets.state_dict().items():
+        assert torch.equal(v, want_state[k]), k
+    jloaded = JModel(jpreset, jw.load_pretrained_params(str(tmp_path / "jax"), jpreset),
+                     load_tokenizer(None, vocab_size=jpreset.text.vocab_size),
+                     schedule=jpreset.schedule)
+    ids = jloaded.tokenizer(["a cat sitting next to a mirror", ""])
+    want_ctx = np.asarray(jloaded.encode_text(ids))
+    with torch.no_grad():
+        ctx = loaded.encode_text(ids)
+    np.testing.assert_allclose(ctx.numpy(), want_ctx, rtol=1e-4, atol=1e-4)
+    lat = np.random.RandomState(8).randn(2, 8, 8, 4).astype(np.float32)
+    want = np.asarray(jloaded.apply_unet(jnp.asarray(lat), 301, jnp.asarray(want_ctx)))
+    with torch.no_grad():
+        got = loaded.unet(torch.from_numpy(lat).permute(0, 3, 1, 2), 301, ctx)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, rtol=1e-4, atol=1e-4)
+    tw.save_pretrained(loaded.nets, str(tmp_path / "port"), loaded.preset)
+    subs = ["text_encoder", "text_encoder_2", "unet", "vae"] if name == "tinyxl" else \
+        ["text_encoder", "unet", "vae"]
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == subs
+    for sub in subs:
+        (f_jax,), (f_port,) = ((tmp_path / d / sub).glob("*.safetensors") for d in ("jax", "port"))
+        a, b = tw.read_safetensors(str(f_jax)), tw.read_safetensors(str(f_port))
+        assert set(a) == set(b), sub
+        for k in a:
+            assert torch.equal(a[k], b[k]), (sub, k)
 
 
 def test_jax_init_loads_bit_equal_to_the_bridge(tmp_path, jax_tiny_init):
     """A JAX tiny init written as a diffusers directory loads into the port
     with every parameter equal, bit for bit, to the same tree through
     DiffusionModel.load_jax_params (models/convert.py)."""
-    _write_checkpoint(jax_tiny_init, tmp_path)
+    write_jax_checkpoint(jax_tiny_init, tmp_path, JTINY)
     loaded, _ = load_diffusion_model("tiny", device="cpu", weights_dir=str(tmp_path))
     bridged, _ = load_diffusion_model("tiny", device="cpu")
     bridged.load_jax_params(jax_tiny_init)
@@ -151,7 +200,7 @@ def test_legacy_missing_and_extra_keys(tmp_path, jax_tiny_init):
     """Legacy VAE attention keys (query / key / value / proj_attn with
     (C, C, 1, 1) weights) load; an extra key (CLIP's position_ids) is
     ignored; a missing key raises KeyError before anything is copied."""
-    _write_checkpoint(jax_tiny_init, tmp_path)
+    write_jax_checkpoint(jax_tiny_init, tmp_path, JTINY)
     vae_file = str(tmp_path / "vae" / "model.safetensors")
     state = tw.read_safetensors(vae_file)
     legacy = {}

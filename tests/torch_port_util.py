@@ -39,18 +39,20 @@ def flax_tree(nets: nn.Module) -> dict:
     return tree
 
 
-@functools.lru_cache(maxsize=1)
-def tiny_pair(seed: int = 0):
-    """(JAX tiny DiffusionModel, port tiny DiffusionModel) with equal weights,
-    fp32, on the CPU."""
-    from eta_inversion_tpu.models import TINY, DiffusionModel as JaxModel
+@functools.lru_cache(maxsize=4)
+def tiny_pair(seed: int = 0, preset: str = "tiny"):
+    """(JAX DiffusionModel, port DiffusionModel) of a tiny preset ("tiny",
+    "tiny21", "tinyv", "tinyxl") with equal weights, fp32, on the CPU."""
+    from eta_inversion_tpu.models import PRESETS, DiffusionModel as JaxModel
     from eta_inversion_tpu.models.tokenizer import load_tokenizer
     from eta_inversion_tpu_torch.models import load_diffusion_model
 
-    port, _ = load_diffusion_model("tiny", seed=seed, device="cpu")
+    port, _ = load_diffusion_model(preset, seed=seed, device="cpu")
     tree = flax_tree(port.nets)
     port.load_jax_params(tree)  # weights reach the port through from_jax_params
-    jax_model = JaxModel(TINY, tree, load_tokenizer(None, vocab_size=TINY.text.vocab_size))
+    jpreset = PRESETS[preset]
+    jax_model = JaxModel(jpreset, tree, load_tokenizer(None, vocab_size=jpreset.text.vocab_size),
+                         schedule=jpreset.schedule)
     return jax_model, port
 
 
@@ -91,23 +93,33 @@ def edit_both(pair, image, inverter, editor, steps, cfg=None, inv_cfg=None,
     return {k: np.asarray(v) for k, v in want.items()}, {k: to_nhwc(v) for k, v in got.items()}
 
 
-def write_tiny_checkpoint(root) -> tuple:
-    """The tiny JAX tree (tiny_pair's) written under `root` as a
+def write_jax_checkpoint(tree, root, preset) -> None:
+    """A flax tree written under `root` as a diffusers-layout checkpoint
+    directory with the JAX package's key maps and writer (their inverse
+    transforms, tests/test_weights.py); SDXL-style presets also get
+    text_encoder_2/."""
+    from eta_inversion_tpu.models import weights as jw
+    from tests.test_weights import to_torch_state
+
+    parts = [("unet", "unet", jw.unet_key_map(preset.unet)),
+             ("vae", "vae", jw.vae_key_map(preset.vae)),
+             ("text_encoder", "text", jw.clip_text_key_map(preset.text))]
+    if preset.text2 is not None:
+        parts.append(("text_encoder_2", "text2", jw.clip_text_key_map(preset.text2)))
+    for sub, comp, key_map in parts:
+        (root / sub).mkdir(parents=True, exist_ok=True)
+        jw.write_safetensors(str(root / sub / "model.safetensors"),
+                             to_torch_state(tree[comp], key_map))
+
+
+def write_tiny_checkpoint(root, preset: str = "tiny") -> tuple:
+    """A tiny JAX tree (tiny_pair's of `preset`) written under `root` as a
     diffusers-layout checkpoint directory with the JAX package's key maps,
     and a 20x24 input png beside it: (directory, png path)."""
     from PIL import Image
 
-    from eta_inversion_tpu.models import weights as jw
-    from tests.test_weights import to_torch_state
-
-    jax_model, _ = tiny_pair()
-    preset = jax_model.preset
-    for sub, comp, key_map in (("unet", "unet", jw.unet_key_map(preset.unet)),
-                               ("vae", "vae", jw.vae_key_map(preset.vae)),
-                               ("text_encoder", "text", jw.clip_text_key_map(preset.text))):
-        (root / sub).mkdir()
-        jw.write_safetensors(str(root / sub / "model.safetensors"),
-                             to_torch_state(jax_model.params[comp], key_map))
+    jax_model, _ = tiny_pair(preset=preset)
+    write_jax_checkpoint(jax_model.params, root, jax_model.preset)
     png = root / "in.png"
     Image.fromarray((np.random.RandomState(0).rand(20, 24, 3) * 255).astype("uint8")).save(png)
     return str(root), str(png)
